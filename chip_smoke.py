@@ -1,0 +1,333 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (speech_inpainting_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing JSON lines as it goes (flushed, so a cut run shows where
+it stopped); any failure raises and exits non-zero:
+  device        the card's name and power limit (also printed as nvidia-smi
+                gives them, on a line of their own);
+  build         compiles the kernel source with nvcc: seconds and ptxas's
+                register counts;
+  kernel_check  the fused ResBlock1 kernel against its plain PyTorch version
+                at the 12 (C, K) shapes of HiFi-GAN V1 with odd T, in float32
+                (atol 3e-5) and bfloat16 (rel 3e-2);
+  main          informed inpainting at full width (HuBERT-base + V1, random
+                weights from a seed, 100×80 codebook) on B = 4 synthetic 4 s
+                utterances with 200 ms masks: kernel launches, kernel path vs
+                plain path, card vs CPU on a short input, bf16 throughput;
+  kernel_time   the kernel against its plain version at the main path's
+                shapes (same tolerances), then kernel, plain version and
+                library chain timed there, beside the card's bound.
+Then the `kernels` line, and last {"ok": true, "device": {...}}.
+
+Exits 1 without printing a result when no CUDA device is present.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 0
+F32_ATOL = 3e-5    # tests/test_pallas.py's ResBlock1 tolerance
+BF16_RTOL = 3e-2   # bench.py's bf16 kernel-canary tolerance
+MAIN_ATOL = 1e-4   # kernel path vs plain path, f32 waveform in [-1, 1]
+CPU_ATOL = 1e-4    # card vs CPU on a short input, f32 waveform
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM, dense
+PEAK_BYTES = 3.35e12
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+# ------------------------------------------------------------------- timing
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def resblock_bound_ms(B, C, T, K, S, dtype_name) -> tuple[float, float]:
+    """The two floors of one ResBlock1, in ms: its FLOP over the type's peak,
+    and its bytes (each input read once, the output written once) over the
+    memory rate. The least time is the larger."""
+    size = 4 if dtype_name == "float32" else 2
+    flops = 4.0 * S * C * C * K * T * B
+    nbytes = size * (2 * B * C * T + 2 * S * C * C * K) + 4 * 2 * S * C
+    return 1e3 * flops / PEAK_FLOPS[dtype_name], 1e3 * nbytes / PEAK_BYTES
+
+
+# ------------------------------------------------------------------- phases
+
+def phase_device(torch) -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    info = {"phase": "device", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(), "nvidia_smi": smi,
+            "torch": torch.__version__, "cuda": torch.version.cuda}
+    emit(info)
+    return info
+
+
+def phase_build() -> None:
+    from speech_inpainting_torch.kernels import build
+    t0 = time.perf_counter()
+    done = build.build("resblock1")
+    log = done["log"] if done else ""
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "compiled": done is not None, "ptxas": ptxas})
+
+
+def _resblock_inputs(rng, B, C, T, K, S, torch, dtype):
+    # weights at a per-conv gain that keeps activations O(1) at every width
+    # (0.5/√(C·K); test_pallas.py's 0.05 at C=32, K=3)
+    scale = 0.5 / math.sqrt(C * K)
+    arrs = (rng.standard_normal((B, C, T)),
+            rng.standard_normal((S, C, C, K)) * scale,
+            rng.standard_normal((S, C)) * 0.1,
+            rng.standard_normal((S, C, C, K)) * scale,
+            rng.standard_normal((S, C)) * 0.1)
+    return [torch.tensor(a, dtype=dtype, device="cuda") for a in arrs]
+
+
+def phase_kernel_check(torch) -> dict:
+    """Kernel vs plain version at V1's 12 (C, K) shapes, B = 2, odd T."""
+    from speech_inpainting_torch.ops.resblock import (fused_resblock1,
+                                                      resblock1_reference)
+    rng = np.random.default_rng(SEED)
+    dils, S = (1, 3, 5), 3
+    worst = {"f32_max_abs_err": 0.0, "bf16_rel_err": 0.0}
+    for C in (256, 128, 64, 32):
+        for K in (3, 7, 11):
+            f32 = _resblock_inputs(rng, 2, C, 2049, K, S, torch, torch.float32)
+            got = fused_resblock1(*f32, dils)
+            want = resblock1_reference(*f32, dils)
+            err = (got - want).abs().max().item()
+            bf = [t.to(torch.bfloat16) for t in f32]
+            got_b = fused_resblock1(*bf, dils).float()
+            want_b = resblock1_reference(*bf, dils).float()
+            rel = ((got_b - want_b).abs().max() / want_b.abs().max()).item()
+            torch.cuda.synchronize()
+            ok = err <= F32_ATOL and rel <= BF16_RTOL
+            emit({"phase": "kernel_check", "C": C, "K": K, "B": 2, "T": 2049,
+                  "f32_max_abs_err": err, "f32_atol": F32_ATOL,
+                  "bf16_rel_err": rel, "bf16_rtol": BF16_RTOL, "ok": ok})
+            if not ok:
+                raise AssertionError(f"fused_resblock1 disagrees at C={C} "
+                                     f"K={K}: f32 {err}, bf16 rel {rel}")
+            worst["f32_max_abs_err"] = max(worst["f32_max_abs_err"], err)
+            worst["bf16_rel_err"] = max(worst["bf16_rel_err"], rel)
+    return worst
+
+
+def phase_kernel_time(torch, stage_T: dict) -> dict:
+    """Kernel against its plain version, then kernel, plain version and
+    library chain timed, at the main path's shapes: the 12 ResBlock1 calls
+    of one V1 forward at B = 4 (T per stage from `stage_T`), per dtype,
+    summed over the 12. Raises where the kernel disagrees (f32 atol, bf16
+    rel, as in `phase_kernel_check`)."""
+    from speech_inpainting_torch.ops.resblock import (fused_resblock1,
+                                                      resblock1_reference)
+    rng = np.random.default_rng(SEED)
+    dils, S = (1, 3, 5), 3
+    timed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+               "err": 0.0}
+        floors = {"operations": 0.0, "bytes": 0.0}
+        for C, T in stage_T.items():
+            for K in (3, 7, 11):
+                args = _resblock_inputs(rng, 4, C, T, K, S, torch, dtype)
+                got = fused_resblock1(*args, dils).float()
+                want = resblock1_reference(*args, dils).float()
+                err, tol = (got - want).abs().max().item(), F32_ATOL
+                if dtype == torch.bfloat16:
+                    err, tol = err / want.abs().max().item(), BF16_RTOL
+                del got, want
+                if not err <= tol:
+                    raise AssertionError(
+                        f"fused_resblock1 disagrees at the main path's shape "
+                        f"B=4 C={C} T={T} K={K} {name}: {err} > {tol}")
+                tot["err"] = max(tot["err"], err)
+                ms = cuda_ms(lambda: fused_resblock1(*args, dils), 3)
+                plain = cuda_ms(lambda: resblock1_reference(*args, dils), 3)
+                # the library yardstick: the same F.conv1d chain with
+                # cuDNN's autotuner choosing each convolution's algorithm
+                torch.backends.cudnn.benchmark = True
+                lib = cuda_ms(lambda: resblock1_reference(*args, dils), 3,
+                              warmup=2)
+                torch.backends.cudnn.benchmark = False
+                t_ops, t_bytes = resblock_bound_ms(4, C, T, K, S, name)
+                bound = max(t_ops, t_bytes)
+                emit({"phase": "kernel_time", "dtype": name, "B": 4, "C": C,
+                      "T": T, "K": K, "err": err, "tolerance": tol,
+                      "ms": ms, "plain_ms": plain,
+                      "library_ms": lib, "bound_ms": bound,
+                      "bound_by": "operations" if t_ops >= t_bytes
+                      else "bytes"})
+                for key, v in (("ms", ms), ("plain_ms", plain),
+                               ("library_ms", lib), ("bound_ms", bound)):
+                    tot[key] += v
+                floors["operations"] += t_ops
+                floors["bytes"] += t_bytes
+        # the sum of the 12 calls' floors is bound by what dominates it
+        tot["bound_by"] = max(floors, key=floors.get)
+        timed[name] = tot
+        emit({"phase": "kernel_time_per_forward", "dtype": name, **tot})
+    return timed
+
+
+def phase_main(torch) -> dict:
+    from speech_inpainting_torch.infer.inpaint import (InformedInpainter,
+                                                       InpainterConfig,
+                                                       _masked_mel22)
+    from speech_inpainting_torch.models.hifigan import HiFiGANConfig
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    from speech_inpainting_torch.ops.resblock import fused_resblock1
+    from speech_inpainting_torch.testing import (generator_tree, hubert_tree,
+                                                 synthetic_batch)
+    rng = np.random.default_rng(SEED)
+    hcfg, gcfg = HubertConfig.base(), HiFiGANConfig()
+    hp, gp = hubert_tree(hcfg, 80, rng), generator_tree(gcfg, rng)
+    centroids = rng.standard_normal((100, 80)).astype(np.float32)
+    B, seconds = 4, 4.0
+    w22, w16, pos, lens = synthetic_batch(rng, B, seconds)
+    inp = InformedInpainter(InpainterConfig(hcfg, gcfg), hp, gp, centroids)
+    # one kernel launch per residual step: 4 stages × 3 blocks × 3 steps
+    n_launches = len(gcfg.upsample_rates) * sum(
+        len(d) for d in gcfg.resblock_dilation_sizes)
+
+    fused_resblock1.launches = 0
+    out = inp.batch(w22, w16, pos, lens)
+    torch.cuda.synchronize()
+    launches = fused_resblock1.launches
+    # 200 hop-441 mel frames, regridded to floor(200·441/256) = 344 frames
+    # of hop 256
+    T_out = (1 + (w22.shape[1] + 2 * 312 - 1024) // 441) * 441 // 256 * 256
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    want = {"inpainted": (B, T_out), "mel_masked": (B, 80, 200),
+            "mel_inpainted": (B, 80, 200), "pred_labels": (B, 199)}
+    finite = all(bool(torch.isfinite(v.float()).all()) for v in out.values())
+
+    inp.generator.use_kernel = False
+    plain = inp.batch(w22, w16, pos, lens)
+    inp.generator.use_kernel = True
+    diff = (out["inpainted"] - plain["inpainted"]).abs().max().item()
+    agree = (out["pred_labels"] == plain["pred_labels"]).float().mean().item()
+
+    # the same modules on the CPU, on a short input (the CPU runs the plain
+    # ResBlock1 and torch's CPU convolutions)
+    cpu = InformedInpainter(InpainterConfig(hcfg, gcfg), hp, gp, centroids,
+                            device="cpu")
+    s22, s16, spos, slens = synthetic_batch(np.random.default_rng(SEED + 1),
+                                            1, 0.5, mask_frames=5)
+    on_card = inp.batch(s22, s16, spos, slens)["inpainted"].cpu()
+    on_cpu = cpu.batch(s22, s16, spos, slens)["inpainted"]
+    cpu_diff = (on_card - on_cpu).abs().max().item()
+
+    ok = (launches == n_launches and shapes == want and finite
+          and diff <= MAIN_ATOL and agree == 1.0 and cpu_diff <= CPU_ATOL)
+    emit({"phase": "main_f32", "B": B, "seconds": seconds,
+          "launches": launches, "expected_launches": n_launches,
+          "shapes": shapes, "finite": finite,
+          "kernel_vs_plain_max_abs": diff, "tolerance": MAIN_ATOL,
+          "pred_labels_agreement": agree, "card_vs_cpu_max_abs": cpu_diff,
+          "cpu_tolerance": CPU_ATOL, "ok": ok})
+    if not ok:
+        raise AssertionError("main path check failed")
+
+    # throughput on inputs already on the card, f32 and then bf16 (the same
+    # weights and inputs), and where one bf16 batch spends its time
+    dev = [torch.as_tensor(a, device="cuda") for a in (w22, w16, pos, lens)]
+    audio_s = B * T_out / 22050.0
+    f32_batch = cuda_ms(lambda: inp.batch(*dev), 3) / 1e3
+    hb, gb = HubertConfig.base(dtype=torch.bfloat16), HiFiGANConfig(
+        dtype=torch.bfloat16)
+    inp16 = InformedInpainter(InpainterConfig(hb, gb), hp, gp, centroids)
+    out16 = inp16.batch(*dev)
+    if not all(bool(torch.isfinite(v.float()).all()) for v in out16.values()):
+        raise AssertionError("bf16 main path gave non-finite output")
+    iters = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        inp16.batch(*dev)
+    torch.cuda.synchronize()
+    per_batch = (time.perf_counter() - t0) / iters
+    with torch.inference_mode():
+        mel = torch.zeros(B, 80, T_out // 256, device="cuda")
+        gen_ms = cuda_ms(lambda: inp16.generator(mel), 3)
+        hub_ms = cuda_ms(lambda: inp16.hubert(dev[1]), 3)
+        front_ms = cuda_ms(lambda: _masked_mel22(dev[0], dev[2], dev[3]), 3)
+    emit({"phase": "main_throughput", "B": B, "audio_seconds": audio_s,
+          "f32_batch_seconds": f32_batch,
+          "f32_audio_seconds_per_second": audio_s / f32_batch,
+          "bf16_batch_seconds": per_batch,
+          "bf16_audio_seconds_per_second": audio_s / per_batch,
+          "bf16_generator_ms": gen_ms, "bf16_hubert_ms": hub_ms,
+          "frontend_ms": front_ms})
+    return {"launches": launches,
+            "T": {C: T_out // 256 * math.prod(gcfg.upsample_rates[:i + 1])
+                  for i, C in enumerate((256, 128, 64, 32))}}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 1
+    import speech_inpainting_torch  # noqa: F401  (fails outside the repo)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    info = phase_device(torch)
+    phase_build()
+    errs = phase_kernel_check(torch)
+    path = phase_main(torch)
+    timed = phase_kernel_time(torch, path["T"])
+    t = timed["bfloat16"]
+    emit({"kernels": [{
+        "name": "fused_resblock1", "route": "cuda",
+        "source": "speech_inpainting_torch/csrc/resblock1.cu",
+        "replaces": "speech_inpainting_tpu/ops/pallas_resblock.py:264",
+        "launches": path["launches"],
+        # the worst over both checks: V1's 12 (C, K) shapes at B=2,
+        # T=2049, and the main path's 12 shapes at B=4
+        "max_abs_err": max(errs["f32_max_abs_err"], timed["float32"]["err"]),
+        "bf16_rel_err": max(errs["bf16_rel_err"], timed["bfloat16"]["err"]),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "timed_at": "the 12 ResBlock1 calls of one V1 forward, B=4 x 4 s, "
+                    "bfloat16, summed",
+        "f32_ms": timed["float32"]["ms"],
+        "f32_plain_ms": timed["float32"]["plain_ms"],
+        "f32_library_ms": timed["float32"]["library_ms"],
+        "f32_bound_ms": timed["float32"]["bound_ms"]}]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
+                                 "count": info["count"]}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

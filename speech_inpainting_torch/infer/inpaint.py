@@ -1,0 +1,127 @@
+"""Informed speech inpainting, the I_ea main path:
+
+    wav22 ─ mask ─ peak-normalise ─ mel(hop 441) ───────────────────┐ splice ─ extend ─ HiFi-GAN ─ wav
+    wav16 ─ mask ─ zero-mean/unit-var ─ HuBERT+head ─ nearest centroid ┘
+
+Conventions (those of speech_inpainting_tpu/infer/inpaint.py):
+  - 22.05 kHz mask span [pos·441, (pos+len)·441);
+  - 16 kHz mask span [pos·320+80, (pos+len)·320−1);
+  - inf-norm × 0.95 on the masked 22 kHz wave, (x−μ)/√(σ²+1e-7) on the 16 kHz
+    one;
+  - predicted frames = centred centroid[argmax cos] + codebook mean, spliced
+    over mel frames [pos, pos+len) of the hop-441 mel, whose frame grid is
+    HuBERT's 20 ms grid;
+  - linear 441 → 256 regrid (extend_mel) before the generator.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..convert.from_jax import generator_from_jax, hubert_from_jax
+from ..device import resolve_device
+from ..models.hifigan import HiFiGANConfig
+from ..models.hubert import HubertConfig
+from ..ops.masking import frame_mask, mask_span, mask_wave_frames
+from ..ops.mel import HUBERT_ALIGNED_MEL_22K, mel_spectrogram
+from ..ops.resize import extend_mel
+
+
+def peak_normalize(x: torch.Tensor, level: float = 0.95,
+                   eps: float = 1e-10) -> torch.Tensor:
+    """librosa.util.normalize(x) · level (inf-norm) over the last axis."""
+    peak = x.abs().amax(dim=-1, keepdim=True).clamp(min=eps)
+    return x * (level / peak)
+
+
+def meanvar_normalize(x: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """HF Wav2Vec2FeatureExtractor do_normalize: (x−μ)/√(σ²+1e-7)."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    return (x - mu) / torch.sqrt(var + eps)
+
+
+@dataclasses.dataclass(frozen=True)
+class InpainterConfig:
+    hubert: HubertConfig
+    hifigan: HiFiGANConfig
+    normalize_16k: bool = True  # HF processor do_normalize
+
+
+def _masked_mel22(wav22, mask_pos, mask_len):
+    masked22 = mask_span(wav22, mask_pos * 441, mask_len * 441)
+    return mel_spectrogram(peak_normalize(masked22), HUBERT_ALIGNED_MEL_22K)
+
+
+def _splice(mel, frames_btd, mask_pos, mask_len):
+    """Replace mel (B, 80, F) frames inside [pos, pos+len) with frames_btd
+    (B, T, 80), padded with zeros or cut to the mel's F frames first."""
+    n_frames = mel.shape[-1]
+    t = frames_btd.shape[1]
+    if t < n_frames:
+        frames_btd = torch.nn.functional.pad(frames_btd,
+                                             (0, 0, 0, n_frames - t))
+    else:
+        frames_btd = frames_btd[:, :n_frames]
+    m = frame_mask(n_frames, mask_pos, mask_len, mel.device)
+    return torch.where(m[:, None, :], frames_btd.transpose(1, 2), mel)
+
+
+class InformedInpainter:
+    """Informed inpainting with HuBERT-base + head and a HiFi-GAN V1
+    generator whose ResBlock1s run in the fused CUDA kernel on the card.
+
+    hubert_params / generator_params: the JAX package's parameter trees
+    (numpy). centroids: (K, 80) mel codebook, uncentred. Runs on the CUDA
+    card unless `device="cpu"` is passed.
+    """
+
+    def __init__(self, cfg: InpainterConfig, hubert_params, generator_params,
+                 centroids, *, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        C = torch.as_tensor(centroids, dtype=torch.float32,
+                            device=self.device)
+        self.hubert = hubert_from_jax(cfg.hubert, hubert_params,
+                                      out_dim=C.shape[-1], device=self.device)
+        self.generator = generator_from_jax(cfg.hifigan, generator_params,
+                                            device=self.device)
+        self._center = C.mean(dim=0)
+        self._C_centered = C - self._center[None, :]
+        self._cn = self._C_centered / self._C_centered.norm(
+            dim=-1, keepdim=True).clamp(min=1e-8)
+
+    @torch.inference_mode()
+    def batch(self, wav22, wav16, mask_pos, mask_len) -> dict:
+        """wav22 (B, T22), wav16 (B, T16) float; mask_pos, mask_len (B,) in
+        20 ms frames. Returns inpainted (B, T), mel_masked and mel_inpainted
+        (B, 80, F), pred_labels (B, frames)."""
+        dev = self.device
+        wav22 = torch.as_tensor(wav22, dtype=torch.float32, device=dev)
+        wav16 = torch.as_tensor(wav16, dtype=torch.float32, device=dev)
+        mask_pos = torch.as_tensor(mask_pos, dtype=torch.int64, device=dev)
+        mask_len = torch.as_tensor(mask_len, dtype=torch.int64, device=dev)
+        mel = _masked_mel22(wav22, mask_pos, mask_len)        # (B, 80, F)
+
+        masked16 = mask_wave_frames(wav16, mask_pos, mask_len)
+        if self.cfg.normalize_16k:
+            masked16 = meanvar_normalize(masked16)
+        emb = self.hubert(masked16).float()                   # (B, T, 80)
+
+        # nearest centroid by centred cosine similarity
+        en = emb / emb.norm(dim=-1, keepdim=True).clamp(min=1e-8)
+        pred_labels = torch.argmax(en @ self._cn.t(), dim=-1)  # (B, T)
+        pred_mels = self._C_centered[pred_labels] + self._center
+
+        inpainted_mel = _splice(mel, pred_mels, mask_pos, mask_len)
+        wav = self.generator(extend_mel(inpainted_mel))
+        return dict(inpainted=wav[:, 0], mel_masked=mel,
+                    mel_inpainted=inpainted_mel, pred_labels=pred_labels)
+
+    def __call__(self, wav22, wav16, mask_pos: int, mask_len: int) -> dict:
+        """One utterance: wav22 (T22,), wav16 (T16,); mask in 20 ms frames."""
+        out = self.batch(torch.as_tensor(wav22)[None],
+                         torch.as_tensor(wav16)[None],
+                         torch.tensor([mask_pos]), torch.tensor([mask_len]))
+        return {k: v[0] for k, v in out.items()}

@@ -1,0 +1,190 @@
+"""HuBERT-base encoder with the I_ea prediction head (post-LN arrangement).
+
+Counterpart of speech_inpainting_tpu/models/hubert.py for the base model:
+a 7-layer strided conv feature encoder (GroupNorm(C, C) after conv 0 only,
+exact GELU), LayerNorm and projection, a grouped conv positional embedding,
+and a post-LN transformer; the head is LayerNorm + Linear to the codebook
+width. Inputs and outputs keep the JAX layout: wav (B, T) → (B, frames, D).
+
+`cfg.dtype` plays flax's `dtype`: the convs and the transformer's dense
+layers compute in it, while the norms, the softmax, the residual stream and
+the head stay in float32.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class HubertConfig:
+    conv_dim: Tuple[int, ...] = (512,) * 7
+    conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    layer_norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.float32
+
+    @staticmethod
+    def base(**over) -> "HubertConfig":
+        return HubertConfig(**over)
+
+
+class LayerNorm32(nn.LayerNorm):
+    """LayerNorm computed in float32 whatever the input's type."""
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(), self.eps)
+
+
+class Dense(nn.Linear):
+    """Linear that computes in its weights' type, as flax's Dense(dtype)."""
+
+    def forward(self, x):
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+class FeatureEncoder(nn.Module):
+    """Strided conv stack over the waveform: (B, T) → (B, frames, C)."""
+
+    def __init__(self, cfg: HubertConfig):
+        super().__init__()
+        chans = (1,) + tuple(cfg.conv_dim)
+        self.convs = nn.ModuleList(
+            nn.Conv1d(chans[i], chans[i + 1], k, stride=s, bias=False)
+            for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)))
+        self.norm_0 = nn.GroupNorm(cfg.conv_dim[0], cfg.conv_dim[0],
+                                   eps=cfg.layer_norm_eps)
+
+    def forward(self, wav):
+        x = wav[:, None, :].to(self.convs[0].weight.dtype)
+        for i, conv in enumerate(self.convs):
+            x = conv(x)
+            if i == 0:  # per-channel statistics over time, in float32
+                n = self.norm_0
+                x = F.group_norm(x.float(), n.num_groups, n.weight.float(),
+                                 n.bias.float(), n.eps).to(x.dtype)
+            x = F.gelu(x)
+        return x.transpose(1, 2)
+
+
+class PositionalConvEmbedding(nn.Module):
+    """Grouped conv relative positional embedding. Its weight norm (dim=2,
+    one magnitude per tap) is folded into `conv.weight` on load."""
+
+    def __init__(self, cfg: HubertConfig):
+        super().__init__()
+        k = cfg.num_conv_pos_embeddings
+        self.conv = nn.Conv1d(cfg.hidden_size, cfg.hidden_size, k,
+                              padding=k // 2,
+                              groups=cfg.num_conv_pos_embedding_groups)
+        self.drop_last = k % 2 == 0  # HF's SamePadLayer
+
+    def forward(self, x):  # (B, T, H)
+        out = self.conv(x.transpose(1, 2).to(self.conv.weight.dtype))
+        if self.drop_last:
+            out = out[:, :, :-1]
+        return F.gelu(out).transpose(1, 2)
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, cfg: HubertConfig):
+        super().__init__()
+        h = cfg.hidden_size
+        self.num_heads = cfg.num_attention_heads
+        self.q_proj, self.k_proj, self.v_proj, self.out_proj = (
+            Dense(h, h) for _ in range(4))
+
+    def forward(self, x):
+        B, T, H = x.shape
+        heads = lambda t: t.reshape(B, T, self.num_heads, -1).transpose(1, 2)
+        q, k, v = heads(self.q_proj(x)), heads(self.k_proj(x)), heads(
+            self.v_proj(x))
+        out = F.scaled_dot_product_attention(q, k, v)
+        return self.out_proj(out.transpose(1, 2).reshape(B, T, H))
+
+
+class FeedForward(nn.Module):
+    def __init__(self, cfg: HubertConfig):
+        super().__init__()
+        self.intermediate_dense = Dense(cfg.hidden_size, cfg.intermediate_size)
+        self.output_dense = Dense(cfg.intermediate_size, cfg.hidden_size)
+
+    def forward(self, x):
+        return self.output_dense(F.gelu(self.intermediate_dense(x)))
+
+
+class EncoderLayer(nn.Module):
+    """Post-LN transformer layer (HuBERT-base)."""
+
+    def __init__(self, cfg: HubertConfig):
+        super().__init__()
+        self.attention = SelfAttention(cfg)
+        self.layer_norm = LayerNorm32(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.feed_forward = FeedForward(cfg)
+        self.final_layer_norm = LayerNorm32(cfg.hidden_size,
+                                            eps=cfg.layer_norm_eps)
+
+    def forward(self, x):
+        x = self.layer_norm(x + self.attention(x))
+        return self.final_layer_norm(x + self.feed_forward(x))
+
+
+class HubertModel(nn.Module):
+    """Waveform (B, T) → frame embeddings (B, frames, hidden)."""
+
+    def __init__(self, cfg: HubertConfig):
+        super().__init__()
+        self.feature_extractor = FeatureEncoder(cfg)
+        self.fp_layer_norm = LayerNorm32(cfg.conv_dim[-1],
+                                         eps=cfg.layer_norm_eps)
+        self.fp_projection = Dense(cfg.conv_dim[-1], cfg.hidden_size)
+        self.pos_conv_embed = PositionalConvEmbedding(cfg)
+        self.encoder_layer_norm = LayerNorm32(cfg.hidden_size,
+                                              eps=cfg.layer_norm_eps)
+        self.layers = nn.ModuleList(EncoderLayer(cfg)
+                                    for _ in range(cfg.num_hidden_layers))
+
+    def forward(self, wav):
+        x = self.fp_projection(self.fp_layer_norm(self.feature_extractor(wav)))
+        x = self.encoder_layer_norm(x + self.pos_conv_embed(x))
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+
+class PredictionHead(nn.Module):
+    """I_ea head: LayerNorm + Linear → codebook width, in float32."""
+
+    def __init__(self, hidden: int, out_dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.layer_norm = LayerNorm32(hidden, eps=eps)
+        self.linear = Dense(hidden, out_dim)
+
+    def forward(self, x):
+        return self.linear(self.layer_norm(x))
+
+
+class EncoderWithHead(nn.Module):
+    """I_ea CustomModel: HuBERT encoder + LayerNorm/Linear head."""
+
+    def __init__(self, cfg: HubertConfig, out_dim: int = 80):
+        super().__init__()
+        self.cfg = cfg
+        self.hubert = HubertModel(cfg)
+        self.head = PredictionHead(cfg.hidden_size, out_dim,
+                                   cfg.layer_norm_eps)
+        self.requires_grad_(False)
+
+    def forward(self, wav):
+        return self.head(self.hubert(wav))

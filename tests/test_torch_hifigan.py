@@ -1,0 +1,84 @@
+"""The port's HiFi-GAN generator (FastGenerator over weights folded by
+convert/from_jax.py) against the flax Generator, on the CPU in float32,
+atol 1e-4: a narrow V1-shaped config, and the trained width-192 proxy whose
+numpy pickle the repo keeps.
+
+The narrow config's weights are speech_inpainting_torch/testing.py's numpy
+tree, checked here against the names and shapes of the JAX package's init by
+abstract evaluation: compiling that init for V1's graph takes ~26 s on a
+CPU, most of this suite's time budget."""
+import json
+import pickle
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from speech_inpainting_tpu.models.hifigan import Generator
+from speech_inpainting_tpu.models.hifigan import HiFiGANConfig as JaxConfig
+from speech_inpainting_torch import testing
+from speech_inpainting_torch.convert.from_jax import generator_from_jax
+from speech_inpainting_torch.models.hifigan import HiFiGANConfig
+
+ROOT = Path(__file__).resolve().parents[1]
+
+NARROW = dict(upsample_initial_channel=32)
+# examples/eval_e2e.py:small_hifigan_22k, the config of eval_r5/hifigan_v1_g.pkl
+PROXY = dict(upsample_rates=(8, 8, 4), upsample_kernel_sizes=(16, 16, 8),
+             upsample_initial_channel=192, resblock_kernel_sizes=(3, 7),
+             resblock_dilation_sizes=((1, 3, 5), (1, 3, 5)))
+
+
+def _np_tree(params):
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def _compare(over, params, mel):
+    gen_j = Generator(JaxConfig(**over))
+    want = np.asarray(jax.jit(gen_j.apply)({"params": params},
+                                           jnp.asarray(mel)))
+    gen = generator_from_jax(HiFiGANConfig(**over), _np_tree(params),
+                             device="cpu")
+    with torch.no_grad():
+        got = gen(torch.tensor(mel)).numpy()
+        gen.use_kernel = False       # the plain route is the same on the CPU
+        np.testing.assert_array_equal(gen(torch.tensor(mel)).numpy(), got)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_narrow_v1_matches_flax(rng):
+    mel = rng.standard_normal((2, 80, 9)).astype(np.float32)
+    params = testing.generator_tree(HiFiGANConfig(**NARROW), rng)
+    shapes = jax.eval_shape(Generator(JaxConfig(**NARROW)).init,
+                            jax.random.PRNGKey(0), jnp.asarray(mel))["params"]
+    assert (jax.tree_util.tree_map(np.shape, params)
+            == jax.tree_util.tree_map(lambda s: s.shape, shapes))
+    _compare(NARROW, params, mel)
+
+
+def test_trained_proxy_pickle_matches_flax(rng):
+    with open(ROOT / "eval_r5" / "hifigan_v1_g.pkl", "rb") as f:
+        params = pickle.load(f)
+    mel = rng.standard_normal((1, 80, 6)).astype(np.float32) - 4.0
+    _compare(PROXY, params, mel)
+
+
+def test_config_from_v1_json():
+    with open(ROOT / "configs" / "hifigan_v1.json") as f:
+        h = json.load(f)
+    got, want = HiFiGANConfig.from_dict(h), JaxConfig.from_dict(h)
+    for field in ("resblock", "upsample_rates", "upsample_kernel_sizes",
+                  "upsample_initial_channel", "resblock_kernel_sizes",
+                  "resblock_dilation_sizes", "in_dim", "sampling_rate"):
+        assert getattr(got, field) == getattr(want, field), field
+    assert got == HiFiGANConfig() and got.total_upsample == 256
+
+
+def test_resblock2_is_refused():
+    with pytest.raises(NotImplementedError):
+        generator_from_jax(HiFiGANConfig(resblock="2"), {}, device="cpu")

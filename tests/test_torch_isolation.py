@@ -1,0 +1,99 @@
+"""The port stands apart from JAX and from the JAX package, builds its
+kernels by nvcc + ctypes only, and never falls back to the CPU unasked."""
+import ast
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "speech_inpainting_torch"
+BANNED = ("jax", "jaxlib", "flax", "speech_inpainting_tpu")
+
+
+def _port_modules():
+    return sorted(".".join(p.relative_to(ROOT).with_suffix("").parts)
+                  .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+
+
+def test_every_module_imports_with_jax_blocked():
+    blocked = "".join(f"sys.modules[{b!r}] = None\n" for b in BANNED)
+    code = (f"import sys\n{blocked}import importlib, pickle\n"
+            f"for m in {_port_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            # the JAX package's numpy pickles load and convert without JAX
+            "from speech_inpainting_torch.convert.from_jax import "
+            "generator_from_jax\n"
+            "from speech_inpainting_torch.models.hifigan import HiFiGANConfig\n"
+            "tree = pickle.load(open('eval_r5/hifigan_v1_g.pkl', 'rb'))\n"
+            "cfg = HiFiGANConfig(upsample_rates=(8, 8, 4), "
+            "upsample_kernel_sizes=(16, 16, 8), upsample_initial_channel=192,"
+            " resblock_kernel_sizes=(3, 7), resblock_dilation_sizes=((1, 3, "
+            "5), (1, 3, 5)))\n"
+            "generator_from_jax(cfg, tree, device='cpu')\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def _imported(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    for name in _imported(path):
+        assert name.split(".")[0] not in BANNED, f"{path} imports {name}"
+
+
+def test_kernels_are_plain_cuda_built_by_nvcc():
+    for path in list(PORT.rglob("*.cu")) + list(PORT.rglob("*.cuh")):
+        assert not re.search(r'#include\s*[<"](torch|ATen|c10)/',
+                             path.read_text()), path
+    for path in list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        assert "cpp_extension" not in path.read_text(), path
+    from speech_inpainting_torch.kernels import build
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert sorted(p.name for p in build.CSRC_DIR.iterdir()) == [
+        "resblock1.cu"]
+    # built output lands in a directory that .gitignore lists
+    assert build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
+    assert "build/" in (ROOT / ".gitignore").read_text().splitlines()
+
+
+def test_entry_points_refuse_the_cpu_unasked():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is usable")
+    from speech_inpainting_torch import resolve_device
+    from speech_inpainting_torch.convert.from_jax import generator_from_jax
+    from speech_inpainting_torch.infer.inpaint import (InformedInpainter,
+                                                       InpainterConfig)
+    from speech_inpainting_torch.models.hifigan import HiFiGANConfig
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    assert resolve_device("cpu").type == "cpu"
+    for call in (lambda: resolve_device(),
+                 lambda: generator_from_jax(HiFiGANConfig(), {}),
+                 lambda: InformedInpainter(
+                     InpainterConfig(HubertConfig.base(), HiFiGANConfig()),
+                     {}, {}, np.zeros((3, 80), np.float32))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0 and res.stdout == ""
