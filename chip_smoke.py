@@ -18,18 +18,35 @@ it stopped); any failure raises and exits non-zero:
                 plain path, card vs CPU on a short input, bf16 throughput;
   kernel_time   the kernel against its plain version at the main path's
                 shapes (same tolerances), then kernel, plain version and
-                library chain timed there, beside the card's bound.
+                library chain timed there, beside the card's bound;
+  ida_main      decoder-adaptation inpainting (I_da) at full width
+                (HuBERT-base tapped at layer 6, 100×768 centroids, the
+                CodeGenerator of configs/da_hubert100_lut.json, a 128-wide
+                d-vector, random weights from a seed) on synthetic 4 s
+                utterances with a 200 ms mask at 1.5 s; the centroids are
+                frames of the inputs' own layer-6 features, so units are
+                clear: K2 launches per utterance, shapes, units changed by
+                the mask, K2 path vs plain path, card vs CPU (layer-6
+                features, f0 on voiced frames, units, waveforms), then f32
+                and bf16 real-time factors and the parts' times;
+  ida_kernel_check  the one-step kernel (K2) against its plain version at
+                the 45 (C, K, dilation) shapes of the I_da generator, at the
+                path's own B and T (same tolerances);
+  ida_kernel_time   K2, its plain version and the library chain timed at
+                those shapes, summed per vocoder call, beside the bound.
 Then the `kernels` line, and last {"ok": true, "device": {...}}.
 
 Exits 1 without printing a result when no CUDA device is present.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -38,6 +55,17 @@ F32_ATOL = 3e-5    # tests/test_pallas.py's ResBlock1 tolerance
 BF16_RTOL = 3e-2   # bench.py's bf16 kernel-canary tolerance
 MAIN_ATOL = 1e-4   # kernel path vs plain path, f32 waveform in [-1, 1]
 CPU_ATOL = 1e-4    # card vs CPU on a short input, f32 waveform
+HUBERT_ATOL = 1e-3  # card vs CPU, HuBERT's layer-6 features (LayerNorm
+#                    scale, after 7 convs and 6 layers of f32 sums of
+#                    768-3072 terms)
+F0_RTOL = 2e-3     # card vs CPU, f0 in Hz on voiced frames (the I_da
+#                    parity test's f0 tolerance)
+IDA_CONFIG = (Path(__file__).resolve().parent / "configs"
+              / "da_hubert100_lut.json")
+IDA_TAP = 6        # cli/inpaint_da.py's default HuBERT layer
+IDA_SECONDS = 4.0
+IDA_MASK = 3200    # 200 ms at 16 kHz, at the default start of 1.5 s
+IDA_UTTERANCES = 3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 
@@ -291,6 +319,281 @@ def phase_main(torch) -> dict:
                   for i, C in enumerate((256, 128, 64, 32))}}
 
 
+def _ida_setup(torch) -> dict:
+    """The full-width I_da configuration, trees, d-vector and utterances
+    from SEED. The 100×768 centroids are frames of HuBERT's layer-6 features
+    on the CPU, of the checked inputs clean and masked (as the I_da parity
+    test draws its own), so that each frame has a clear nearest unit."""
+    from speech_inpainting_torch.convert.from_jax import hubert_model_from_jax
+    from speech_inpainting_torch.models.codegen import CodeGeneratorConfig
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    from speech_inpainting_torch.ops.masking import mask_span
+    from speech_inpainting_torch.testing import (codegen_tree,
+                                                 hubert_model_tree,
+                                                 synthetic_utterance)
+    with open(IDA_CONFIG) as fh:
+        cfg = CodeGeneratorConfig.from_dict(json.load(fh))
+    rng = np.random.default_rng(SEED)
+    params, vq = codegen_tree(cfg, rng)
+    hp = hubert_model_tree(HubertConfig.base(), rng)
+    emb = rng.standard_normal(cfg.embedding_dim).astype(np.float32)
+    utts = [synthetic_utterance(rng, IDA_SECONDS)
+            for _ in range(IDA_UTTERANCES)]
+    short = utts[1][:8000]          # the card-vs-CPU input, mask 1600 at 3200
+    hub = hubert_model_from_jax(HubertConfig.base(), hp, device="cpu")
+    pool = []
+    with torch.inference_mode():
+        for u, start, size in ((utts[0], 24000, IDA_MASK), (short, 3200,
+                                                            1600)):
+            x = torch.as_tensor(u)
+            for y in (x, mask_span(x + 1e-6, start, size)):
+                pool.append(hub(y[None], tap_layer=IDA_TAP)[0])
+    pool = torch.cat(pool).numpy()
+    centroids = pool[rng.choice(len(pool), 100, replace=False)]
+    return dict(cfg=cfg, params=params, vq=vq, hp=hp, emb=emb, utts=utts,
+                short=short, centroids=centroids)
+
+
+def _ida_inpainter(torch, setup: dict, dtype, device=None):
+    from speech_inpainting_torch.infer.ida_inpaint import IdaInpainter
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    cfg = setup["cfg"]
+    cfg = dataclasses.replace(cfg, hifigan=dataclasses.replace(
+        cfg.hifigan, dtype=dtype))
+    return IdaInpainter(cfg, setup["params"], setup["vq"],
+                        HubertConfig.base(dtype=dtype), setup["hp"],
+                        setup["centroids"], tap_layer=IDA_TAP, device=device)
+
+
+def _unit_margin(torch, feats, centroids) -> float:
+    """The least gap, over frames, between the nearest and the second
+    nearest centroid's squared distance, relative to the nearest's."""
+    from speech_inpainting_torch.quantize.kmeans import pairwise_sqdist
+    d = pairwise_sqdist(feats, torch.as_tensor(centroids)).sort(-1).values
+    return ((d[:, 1] - d[:, 0]) / d[:, 0].clamp(min=1e-6)).min().item()
+
+
+def phase_ida_main(torch) -> dict:
+    from speech_inpainting_torch.ops.f0 import extract_f0
+    from speech_inpainting_torch.ops.resblock import (fused_resblock1,
+                                                      fused_resblock_step)
+    setup = _ida_setup(torch)
+    utts, emb = setup["utts"], setup["emb"]
+    inp = _ida_inpainter(torch, setup, torch.float32)
+    gcfg = inp.cfg.hifigan
+    # one K2 launch per residual step: 5 stages × 3 blocks × 3 steps, for
+    # each of the two vocoder calls (clean units, inpainted units)
+    n_launches = 2 * len(gcfg.upsample_rates) * sum(
+        len(d) for d in gcfg.resblock_dilation_sizes)
+
+    fused_resblock_step.launches = fused_resblock1.launches = 0
+    out = inp(utts[0], IDA_MASK, emb=emb)
+    torch.cuda.synchronize()
+    launches, k1_launches = (fused_resblock_step.launches,
+                             fused_resblock1.launches)
+    # HuBERT's frame count, and the samples left after the alignment of
+    # (audio, 320-sample units, 80-sample f0 frames) and the 1280 trim
+    n_code = len(utts[0])
+    for k, s in zip(inp.hubert_cfg.conv_kernel, inp.hubert_cfg.conv_stride):
+        n_code = (n_code - k) // s + 1
+    n = min(len(utts[0]) // 320, n_code,
+            inp.f0_cfg.num_frames(len(utts[0])) // 4) * 320
+    n -= n % 1280
+    frames = n // inp.code_hop
+    shapes = {k: tuple(v.shape) for k, v in out.items() if k != "rtf"}
+    want = {"audio_gt": (n,), "audio_mask": (n,), "audio_gen": (n,),
+            "audio_inpainted": (n,), "code_clean": (n_code,),
+            "code_inpainted": (frames,)}
+    finite = all(bool(torch.isfinite(v.float()).all())
+                 for k, v in out.items() if k != "rtf")
+    n_inside = int((out["code_inpainted"]
+                    != out["code_clean"][:frames]).sum())
+
+    inp.codegen.generator.use_kernel = False
+    plain = inp(utts[0], IDA_MASK, emb=emb)
+    inp.codegen.generator.use_kernel = True
+    codes_equal = all(bool(torch.equal(out[k], plain[k]))
+                      for k in ("code_clean", "code_inpainted"))
+    diff = max((out[k] - plain[k]).abs().max().item()
+               for k in ("audio_gen", "audio_inpainted"))
+
+    # the same modules on the CPU: the tapped features and the f0 track of
+    # a whole utterance, then the path on a short input with its own mask
+    cpu = _ida_inpainter(torch, setup, torch.float32, device="cpu")
+    with torch.inference_mode():
+        feat_card = inp.hubert(torch.as_tensor(utts[0], device="cuda")[None],
+                               tap_layer=IDA_TAP)[0].cpu()
+        feat_cpu = cpu.hubert(torch.as_tensor(utts[0])[None],
+                              tap_layer=IDA_TAP)[0]
+    feat_diff = (feat_card - feat_cpu).abs().max().item()
+    margin = _unit_margin(torch, feat_cpu, setup["centroids"])
+    f0_card = extract_f0(torch.as_tensor(utts[0], device="cuda")).cpu()
+    f0_cpu = extract_f0(torch.as_tensor(utts[0]))
+    voicing_equal = bool(torch.equal(f0_card > 0, f0_cpu > 0))
+    voiced = f0_cpu > 0
+    f0_rel = ((f0_card - f0_cpu).abs() / f0_cpu.clamp(min=1.0))[voiced]
+    f0_rel = f0_rel.max().item() if f0_rel.numel() else 0.0
+    short = setup["short"]
+    on_card = inp(short, 1600, mask_start=3200, emb=emb)
+    on_cpu = cpu(short, 1600, mask_start=3200, emb=emb)
+    cpu_codes_equal = all(
+        bool(torch.equal(on_card[k].cpu(), on_cpu[k]))
+        for k in ("code_clean", "code_inpainted"))
+    cpu_diff = max((on_card[k].cpu() - on_cpu[k]).abs().max().item()
+                   for k in ("audio_gen", "audio_inpainted"))
+
+    ok = (launches == n_launches and k1_launches == 0 and shapes == want
+          and finite and n_inside > 0 and codes_equal and diff <= MAIN_ATOL
+          and feat_diff <= HUBERT_ATOL and voicing_equal
+          and f0_rel <= F0_RTOL and cpu_codes_equal and cpu_diff <= CPU_ATOL)
+    emit({"phase": "ida_main_f32", "seconds": IDA_SECONDS,
+          "mask_samples": IDA_MASK, "tap_layer": IDA_TAP,
+          "launches": launches, "expected_launches": n_launches,
+          "k1_launches": k1_launches, "shapes": shapes, "finite": finite,
+          "units_changed_by_mask": n_inside,
+          "kernel_vs_plain_codes_equal": codes_equal,
+          "kernel_vs_plain_max_abs": diff, "tolerance": MAIN_ATOL,
+          "card_vs_cpu_features_max_abs": feat_diff,
+          "features_tolerance": HUBERT_ATOL, "unit_margin_min": margin,
+          "f0_voicing_equal": voicing_equal,
+          "f0_frames_voiced": int(voiced.sum()),
+          "f0_frames": int(f0_cpu.numel()), "f0_voiced_max_rel": f0_rel,
+          "f0_tolerance": F0_RTOL,
+          "card_vs_cpu_codes_equal": cpu_codes_equal,
+          "card_vs_cpu_max_abs": cpu_diff, "cpu_tolerance": CPU_ATOL,
+          "ok": ok})
+    if not ok:
+        raise AssertionError("I_da path check failed")
+    del cpu
+
+    timing = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        if dtype != torch.float32:
+            inp = _ida_inpainter(torch, setup, dtype)
+        dev = [torch.as_tensor(u, device="cuda") for u in utts]
+        emb_d = torch.as_tensor(emb, device="cuda")
+        inp(dev[0], IDA_MASK, emb=emb_d)             # warm-up
+        walls, audio_s = 0.0, 0.0
+        for u in dev:
+            o = inp(u, IDA_MASK, emb=emb_d)
+            seconds = o["audio_gen"].shape[-1] / gcfg.sampling_rate
+            walls += o["rtf"] * seconds
+            audio_s += seconds
+            if not all(bool(torch.isfinite(v.float()).all())
+                       for k, v in o.items() if k != "rtf"):
+                raise AssertionError(f"{name} I_da path gave non-finite "
+                                     "output")
+        with torch.inference_mode():
+            f0n = torch.zeros(1, 1, frames * 4, device="cuda")
+            code = torch.zeros(1, frames, dtype=torch.int64, device="cuda")
+            feats = torch.zeros(1, gcfg.in_dim, frames, device="cuda")
+            parts = {
+                "hubert_ms": cuda_ms(lambda: inp.hubert(
+                    dev[0][None], tap_layer=IDA_TAP), 3),
+                "f0_ms": cuda_ms(lambda: extract_f0(dev[0]), 3),
+                "codegen_ms": cuda_ms(lambda: inp.codegen(
+                    code, f0=f0n, emb=emb_d[None]), 3),
+                "generator_ms": cuda_ms(lambda: inp.codegen.generator(
+                    feats), 3)}
+        timing[name] = {"rtf": walls / audio_s,
+                        "audio_seconds_per_second": audio_s / walls,
+                        **parts}
+        emit({"phase": "ida_throughput", "dtype": name,
+              "utterances": len(dev), "audio_seconds": audio_s,
+              "wall_seconds": walls, **timing[name]})
+    stage_T, t = {}, frames
+    for i, u in enumerate(gcfg.upsample_rates):
+        t *= u
+        stage_T[gcfg.upsample_initial_channel // 2 ** (i + 1)] = t
+    return {"launches": launches, "T": stage_T,
+            "kernel_sizes": gcfg.resblock_kernel_sizes,
+            "dilations": gcfg.resblock_dilation_sizes}
+
+
+def _step_inputs(rng, C, T, K, torch, dtype):
+    x, w1, b1, w2, b2 = _resblock_inputs(rng, 1, C, T, K, 1, torch, dtype)
+    return x, w1[0], b1[0], w2[0], b2[0]
+
+
+def _ida_shapes(path):
+    for C, T in path["T"].items():
+        for K, dils in zip(path["kernel_sizes"], path["dilations"]):
+            for d in dils:
+                yield C, T, K, d
+
+
+def phase_ida_kernel_check(torch, path) -> dict:
+    """K2 vs its plain version at every (C, K, d) of the I_da generator, at
+    the path's B = 1 and per-stage T."""
+    from speech_inpainting_torch.ops.resblock import (fused_resblock_step,
+                                                      resblock_step_reference)
+    rng = np.random.default_rng(SEED)
+    worst = {"f32_max_abs_err": 0.0, "bf16_rel_err": 0.0, "shapes": 0}
+    for C, T, K, d in _ida_shapes(path):
+        f32 = _step_inputs(rng, C, T, K, torch, torch.float32)
+        err = (fused_resblock_step(*f32, d)
+               - resblock_step_reference(*f32, d)).abs().max().item()
+        bf = [a.to(torch.bfloat16) for a in f32]
+        got = fused_resblock_step(*bf, d).float()
+        want = resblock_step_reference(*bf, d).float()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        torch.cuda.synchronize()
+        ok = err <= F32_ATOL and rel <= BF16_RTOL
+        emit({"phase": "ida_kernel_check", "C": C, "K": K, "dilation": d,
+              "B": 1, "T": T, "f32_max_abs_err": err, "f32_atol": F32_ATOL,
+              "bf16_rel_err": rel, "bf16_rtol": BF16_RTOL, "ok": ok})
+        if not ok:
+            raise AssertionError(f"fused_resblock_step disagrees at C={C} "
+                                 f"K={K} d={d}: f32 {err}, bf16 rel {rel}")
+        worst["f32_max_abs_err"] = max(worst["f32_max_abs_err"], err)
+        worst["bf16_rel_err"] = max(worst["bf16_rel_err"], rel)
+        worst["shapes"] += 1
+    emit({"phase": "ida_kernel_check_summary", **worst})
+    return worst
+
+
+def phase_ida_kernel_time(torch, path) -> dict:
+    """K2, its plain version and the library chain timed at the I_da
+    generator's 45 step shapes, summed per vocoder call, per dtype."""
+    from speech_inpainting_torch.ops.resblock import (fused_resblock_step,
+                                                      resblock_step_reference)
+    rng = np.random.default_rng(SEED)
+    timed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "bound_ms": 0.0}
+        floors = {"operations": 0.0, "bytes": 0.0}
+        per_C = {}
+        for C, T, K, d in _ida_shapes(path):
+            args = _step_inputs(rng, C, T, K, torch, dtype)
+            ms = cuda_ms(lambda: fused_resblock_step(*args, d), 5)
+            plain = cuda_ms(lambda: resblock_step_reference(*args, d), 5)
+            torch.backends.cudnn.benchmark = True
+            lib = cuda_ms(lambda: resblock_step_reference(*args, d), 5,
+                          warmup=2)
+            torch.backends.cudnn.benchmark = False
+            t_ops, t_bytes = resblock_bound_ms(1, C, T, K, 1, name)
+            for key, v in (("ms", ms), ("plain_ms", plain),
+                           ("library_ms", lib),
+                           ("bound_ms", max(t_ops, t_bytes))):
+                tot[key] += v
+            per_C[C] = per_C.get(C, 0.0) + ms
+            floors["operations"] += t_ops
+            floors["bytes"] += t_bytes
+            emit({"phase": "ida_kernel_time", "dtype": name, "B": 1, "C": C,
+                  "T": T, "K": K, "dilation": d, "ms": ms, "plain_ms": plain,
+                  "library_ms": lib, "bound_ms": max(t_ops, t_bytes),
+                  "bound_by": "operations" if t_ops >= t_bytes
+                  else "bytes"})
+        tot["bound_by"] = max(floors, key=floors.get)
+        timed[name] = tot
+        emit({"phase": "ida_kernel_time_per_vocoder_call", "dtype": name,
+              "kernel_ms_by_C": per_C, **tot})
+    return timed
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -306,7 +609,10 @@ def main() -> int:
     errs = phase_kernel_check(torch)
     path = phase_main(torch)
     timed = phase_kernel_time(torch, path["T"])
-    t = timed["bfloat16"]
+    ida = phase_ida_main(torch)
+    ida_errs = phase_ida_kernel_check(torch, ida)
+    ida_timed = phase_ida_kernel_time(torch, ida)
+    t, t2 = timed["bfloat16"], ida_timed["bfloat16"]
     emit({"kernels": [{
         "name": "fused_resblock1", "route": "cuda",
         "source": "speech_inpainting_torch/csrc/resblock1.cu",
@@ -323,7 +629,21 @@ def main() -> int:
         "f32_ms": timed["float32"]["ms"],
         "f32_plain_ms": timed["float32"]["plain_ms"],
         "f32_library_ms": timed["float32"]["library_ms"],
-        "f32_bound_ms": timed["float32"]["bound_ms"]}]})
+        "f32_bound_ms": timed["float32"]["bound_ms"]}, {
+        "name": "fused_resblock_step", "route": "cuda",
+        "source": "speech_inpainting_torch/csrc/resblock1.cu",
+        "replaces": "speech_inpainting_tpu/ops/pallas_resblock.py:126",
+        "launches": ida["launches"],
+        "max_abs_err": ida_errs["f32_max_abs_err"],
+        "bf16_rel_err": ida_errs["bf16_rel_err"],
+        "ms": t2["ms"], "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
+        "bound_by": t2["bound_by"], "library_ms": t2["library_ms"],
+        "timed_at": "the 45 ResBlock1 steps of one I_da vocoder call, B=1, "
+                    "4 s, bfloat16, summed",
+        "f32_ms": ida_timed["float32"]["ms"],
+        "f32_plain_ms": ida_timed["float32"]["plain_ms"],
+        "f32_library_ms": ida_timed["float32"]["library_ms"],
+        "f32_bound_ms": ida_timed["float32"]["bound_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})
     return 0

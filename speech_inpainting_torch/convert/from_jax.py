@@ -7,7 +7,9 @@ plain `pickle`, without JAX). Two conventions change on the way:
   - weight norm is folded here, once: w = g·v/‖v‖ over every axis but 0 for
     the generator's convs (dim=0, also on the transposed convs, whose axis 0
     is C_in), over axes (0, 1) for HuBERT's positional conv (dim=2).
-Entry points build on the CUDA card unless `device="cpu"` is passed.
+Plain torch-layout convs ({w, b}) and embedding tables ({weight}) copy across
+as they are. Entry points build on the CUDA card unless `device="cpu"` is
+passed.
 """
 from __future__ import annotations
 
@@ -16,9 +18,10 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..models.hifigan import HiFiGANConfig
+from ..models.codegen import CodeGenerator, CodeGeneratorConfig
+from ..models.hifigan import Generator, HiFiGANConfig
 from ..models.hifigan_fast import FastGenerator
-from ..models.hubert import EncoderWithHead, HubertConfig
+from ..models.hubert import EncoderWithHead, HubertConfig, HubertModel
 from ..ops.conv import weight_norm_kernel
 
 
@@ -35,13 +38,10 @@ def _load_conv(conv: nn.Module, p: dict) -> None:
     conv.bias.copy_(_t(p["b"]))
 
 
-@torch.no_grad()
-def generator_from_jax(cfg: HiFiGANConfig, params: dict,
-                       device=None) -> FastGenerator:
+def _load_generator(gen: Generator, params: dict) -> None:
     """`Generator` tree (conv_pre, ups_{i}, resblocks_{i}_{j}/convs{1,2}_{s},
-    conv_post, each {v, g, b}) → FastGenerator in cfg.dtype on `device`."""
-    device = resolve_device(device)
-    gen = FastGenerator(cfg)
+    conv_post, each {v, g, b}) → `gen`, weight norm folded."""
+    cfg = gen.cfg
     _load_conv(gen.conv_pre, params["conv_pre"])
     _load_conv(gen.conv_post, params["conv_post"])
     nk = len(cfg.resblock_kernel_sizes)
@@ -54,6 +54,16 @@ def generator_from_jax(cfg: HiFiGANConfig, params: dict,
                 convs = [blk[f"convs{n}_{s}"] for s in range(len(rd))]
                 dst["w" + n].copy_(torch.stack([_fold(c) for c in convs]))
                 dst["b" + n].copy_(torch.stack([_t(c["b"]) for c in convs]))
+
+
+@torch.no_grad()
+def generator_from_jax(cfg: HiFiGANConfig, params: dict,
+                       device=None) -> FastGenerator:
+    """`Generator` tree → FastGenerator (ResBlock1s in K1) in cfg.dtype on
+    `device`."""
+    device = resolve_device(device)
+    gen = FastGenerator(cfg)
+    _load_generator(gen, params)
     return gen.to(device=device, dtype=cfg.dtype)
 
 
@@ -67,15 +77,9 @@ def _load_norm(norm: nn.Module, p: dict) -> None:
     norm.bias.copy_(_t(p["bias"]))
 
 
-@torch.no_grad()
-def hubert_from_jax(cfg: HubertConfig, params: dict, out_dim: int = 80,
-                    device=None) -> EncoderWithHead:
-    """`EncoderWithHead` tree (hubert/…, head/…) → EncoderWithHead on
-    `device`; the encoder's convs and dense layers in cfg.dtype, its norms
-    and the head in float32."""
-    device = resolve_device(device)
-    model = EncoderWithHead(cfg, out_dim)
-    hp, enc = params["hubert"], model.hubert
+def _load_hubert(enc: HubertModel, hp: dict, dtype: torch.dtype) -> None:
+    """`HubertModel` tree → `enc`; its convs and dense layers then in
+    `dtype`, its norms in float32."""
     fe = hp["feature_extractor"]
     for i, conv in enumerate(enc.feature_extractor.convs):
         conv.weight.copy_(_t(fe[f"conv_{i}_w"]))
@@ -99,10 +103,67 @@ def hubert_from_jax(cfg: HubertConfig, params: dict, out_dim: int = 80,
                     lp["feed_forward"]["output_dense"])
         _load_norm(layer.layer_norm, lp["layer_norm"])
         _load_norm(layer.final_layer_norm, lp["final_layer_norm"])
-    _load_norm(model.head.layer_norm, params["head"]["layer_norm"])
-    _load_dense(model.head.linear, params["head"]["linear"])
-    model.to(device)
     for m in enc.modules():
         if isinstance(m, (nn.Conv1d, nn.Linear)):
-            m.to(cfg.dtype)
+            m.to(dtype)
+
+
+@torch.no_grad()
+def hubert_from_jax(cfg: HubertConfig, params: dict, out_dim: int = 80,
+                    device=None) -> EncoderWithHead:
+    """`EncoderWithHead` tree (hubert/…, head/…) → EncoderWithHead on
+    `device`; the encoder's convs and dense layers in cfg.dtype, its norms
+    and the head in float32."""
+    device = resolve_device(device)
+    model = EncoderWithHead(cfg, out_dim)
+    _load_hubert(model.hubert, params["hubert"], cfg.dtype)
+    _load_norm(model.head.layer_norm, params["head"]["layer_norm"])
+    _load_dense(model.head.linear, params["head"]["linear"])
+    return model.to(device)
+
+
+@torch.no_grad()
+def hubert_model_from_jax(cfg: HubertConfig, params: dict,
+                          device=None) -> HubertModel:
+    """Headless `HubertModel` tree (feature_extractor, …, layers_{i}), as
+    I_da taps it → HubertModel on `device`, with cfg.num_hidden_layers
+    layers; convs and dense layers in cfg.dtype, norms in float32."""
+    device = resolve_device(device)
+    model = HubertModel(cfg)
+    _load_hubert(model, params, cfg.dtype)
+    return model.requires_grad_(False).to(device)
+
+
+def _load_plain(module: nn.Module, tree: dict) -> None:
+    """A tree of torch-layout convs ({w, b}) and tables ({weight}) → the
+    submodules of `module` of the same names."""
+    for name, sub in tree.items():
+        dst = getattr(module, name)
+        if "w" in sub:
+            dst.weight.copy_(_t(sub["w"]))
+            dst.bias.copy_(_t(sub["b"]))
+        elif "weight" in sub:
+            dst.weight.copy_(_t(sub["weight"]))
+        else:
+            _load_plain(dst, sub)
+
+
+@torch.no_grad()
+def codegen_from_jax(cfg: CodeGeneratorConfig, params: dict, vq_tree: dict,
+                     device=None) -> CodeGenerator:
+    """`CodeGenerator` params (emb_c, emb_p, emb_s, fo_vqvae/encoder,
+    generator) and its `vq` collection (fo_vqvae/vq/level_{i}/k) →
+    CodeGenerator on `device`: the generator in cfg.hifigan.dtype with
+    weight norm folded, the embeddings and the f0-VQ encoder in float32."""
+    device = resolve_device(device)
+    model = CodeGenerator(cfg)
+    _load_plain(model, {k: v for k, v in params.items()
+                        if k not in ("generator", "fo_vqvae")})
+    if cfg.use_f0:
+        _load_plain(model.fo_vqvae.encoder, params["fo_vqvae"]["encoder"])
+        for name, level in vq_tree["fo_vqvae"]["vq"].items():
+            getattr(model.fo_vqvae.vq, name).k.copy_(_t(level["k"]))
+    _load_generator(model.generator, params["generator"])
+    model.to(device)
+    model.generator.to(cfg.hifigan.dtype)
     return model

@@ -3,12 +3,14 @@
 // it with nvcc and speech_inpainting_torch/ops/resblock.py calls it through
 // ctypes.
 //
-// Replaces the TPU kernel speech_inpainting_tpu/ops/pallas_resblock.py:
-// fused_resblock1 (K1). It computes the same function: for each step s with
-// dilation d_s,
+// Replaces both TPU kernels of speech_inpainting_tpu/ops/pallas_resblock.py:
+// fused_resblock1 (K1), a whole ResBlock1, and fused_resblock_step (K2), one
+// of its residual steps. Both compute, for each step s with dilation d_s,
 //     x <- x + conv2_s(lrelu(conv1_s(lrelu(x))))      (lrelu slope 0.1)
 // conv1_s dilated by d_s, conv2_s undilated, both with torch "same" padding,
-// and zero padding at the SIGNAL edges of every conv's input.
+// and zero padding at the SIGNAL edges of every conv's input. One kernel,
+// `resblock1_step`, computes one step; `si_resblock1` (K1) enqueues it once
+// per step of a block, `si_resblock_step` (K2) once.
 //
 // Design. The TPU kernel keeps a time tile plus the whole block's halo in
 // ~100 MB of VMEM. A Hopper block has 227 KB of shared memory, which at
@@ -276,6 +278,17 @@ int si_resblock1(const void* x, const void* w1, const float* b1,
     return launch_typed<__nv_bfloat16>(x, w1, b1, w2, b2, out, scratch, B, C,
                                        T_len, K, S, dilations, st);
   return cudaErrorInvalidValue;
+}
+
+// One residual step (K2): x, out (B, C, T); w1, w2 (C, C, K) of dtype
+// `dtype`, contiguous; b1, b2 (C,) float32; conv1 dilated by `dilation`.
+// Enqueues one launch on `stream`; returns a cudaError_t.
+int si_resblock_step(const void* x, const void* w1, const float* b1,
+                     const void* w2, const float* b2, void* out, int B, int C,
+                     int T_len, int K, int dilation, int dtype, int device,
+                     void* stream) {
+  return si_resblock1(x, w1, b1, w2, b2, out, nullptr, B, C, T_len, K, 1,
+                      &dilation, dtype, device, stream);
 }
 
 const char* si_cuda_error_string(int code) {

@@ -5,7 +5,7 @@ Each source `csrc/<name>.cu` is plain CUDA C++ with an extern "C" interface
 `build/speech_inpainting_torch/lib<name>-<hash>.so` under the repository
 root, a directory that .gitignore lists; the hash covers the source and the
 nvcc flags, so an edited source builds anew and an unchanged one loads as it
-is. The caller of `library` keeps the handle.
+is. `library` loads each source once per process and keeps the handle.
 """
 from __future__ import annotations
 
@@ -62,7 +62,19 @@ def build(name: str) -> dict | None:
     return {"seconds": time.perf_counter() - t0, "log": proc.stdout}
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The library of csrc/<name>.cu, built first if it is stale."""
-    build(name)
-    return ctypes.CDLL(str(library_path(name)))
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def library(name: str, signatures: dict) -> ctypes.CDLL:
+    """The library of csrc/<name>.cu, built first if it is stale. The first
+    call in a process loads it and declares `signatures`, {function:
+    (argtypes, restype)}, on it; later calls return the same handle."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build(name)
+        lib = ctypes.CDLL(str(library_path(name)))
+        for fn, (argtypes, restype) in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,148 @@
+"""The I_da unit-conditioned vocoder: CodeGenerator over content units,
+f0-VQ pitch units and a speaker embedding.
+
+Counterpart of speech_inpainting_tpu/models/codegen.py, for inference in the
+unit-lookup regime:
+  - FoVQVAE.encode_units: jukebox Encoder → VQ Bottleneck over an f0 series
+    (1 channel, 5 ms hop) → pitch units (the Decoder is not ported yet);
+  - CodeGenerator: content-unit Embedding, pitch-unit Embedding, speaker as an
+    external d-vector or an Embedding table, each repeat-upsampled to the
+    longest stream, channel concat (model_in_dim) → HiFi-GAN `Generator`,
+    whose ResBlock1s run in K2 on the card.
+The flax `Embed` tables there are `nn.Embedding` here (`weight`
+(num_embeddings, features), copied unchanged). The content-VQ regime (the
+reference's lambda_commit_code) raises NotImplementedError.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..quantize.vq import Bottleneck
+from .hifigan import Generator, HiFiGANConfig
+from .jukebox import ConvStackConfig, Encoder
+
+
+@dataclasses.dataclass(frozen=True)
+class FoVQVAEConfig:
+    encoder: ConvStackConfig = ConvStackConfig()
+    decoder: ConvStackConfig = ConvStackConfig()
+    l_bins: int = 20
+    emb_width: int = 128
+    mu: float = 0.99
+    levels: int = 1
+
+    @staticmethod
+    def from_dict(h: dict) -> "FoVQVAEConfig":
+        vq = h["f0_vq_params"]
+        return FoVQVAEConfig(
+            encoder=ConvStackConfig.from_dict(h["f0_encoder_params"]),
+            decoder=ConvStackConfig.from_dict(h["f0_decoder_params"]),
+            l_bins=vq["l_bins"], emb_width=vq["emb_width"],
+            mu=vq.get("mu", 0.99), levels=vq.get("levels", 1))
+
+
+class FoVQVAE(nn.Module):
+    """The f0-VQ-VAE's encoder side: f0 (B, 1, T) → pitch units."""
+
+    def __init__(self, cfg: FoVQVAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = Encoder(cfg.encoder)
+        self.vq = Bottleneck(cfg.levels, cfg.l_bins, cfg.emb_width)
+
+    def encode_units(self, f0: torch.Tensor) -> torch.Tensor:
+        """f0 (B, 1, T) → discrete pitch units (B, T/total_stride)."""
+        return self.vq.encode(self.encoder(f0))[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class CodeGeneratorConfig:
+    hifigan: HiFiGANConfig
+    num_embeddings: int = 100          # content-unit vocabulary (100/500)
+    embedding_dim: int = 128
+    multispkr: bool = True
+    use_f0: bool = True                # reference h.f0_stats truthiness
+    spk_embeddings: int = 200          # Embedding-table speaker path
+    external_speaker_emb: bool = True  # d-vector `emb` input vs `spkr` ids
+    f0_quantizer: Optional[FoVQVAEConfig] = None
+    content_vq: bool = False           # reference h.lambda_commit_code
+
+    @staticmethod
+    def from_dict(h: dict) -> "CodeGeneratorConfig":
+        return CodeGeneratorConfig(
+            hifigan=HiFiGANConfig.from_dict(h),
+            num_embeddings=h["num_embeddings"],
+            embedding_dim=h["embedding_dim"],
+            multispkr=bool(h.get("multispkr")),
+            use_f0=bool(h.get("f0_stats")),
+            f0_quantizer=(FoVQVAEConfig.from_dict(h["f0_quantizer"])
+                          if h.get("f0_quantizer") else None),
+            content_vq=bool(h.get("lambda_commit_code")))
+
+
+def repeat_upsample(signal: torch.Tensor, max_frames: int) -> torch.Tensor:
+    """Reference `_upsample` (model.py:78-119): repeat each frame
+    max_frames//T times. signal: (B, C, T) | (B, C) | (B,)."""
+    if signal.ndim == 2:
+        signal = signal[:, :, None]
+    elif signal.ndim == 1:
+        signal = signal[:, None, None]
+    t = signal.shape[-1]
+    if max_frames % t != 0:
+        raise NotImplementedError(
+            "misalignment between condition features "
+            f"(target {max_frames} not a multiple of source {t})")
+    return torch.repeat_interleave(signal, max_frames // t, dim=2)
+
+
+class CodeGenerator(nn.Module):
+    """(code, f0, emb | spkr) → waveform (B, 1, frames·∏upsample_rates)."""
+
+    def __init__(self, cfg: CodeGeneratorConfig):
+        super().__init__()
+        if cfg.content_vq:
+            raise NotImplementedError(
+                "the content-VQ regime (lambda_commit_code) is not ported")
+        self.cfg = cfg
+        self.emb_c = nn.Embedding(cfg.num_embeddings, cfg.embedding_dim)
+        if cfg.use_f0:
+            if cfg.f0_quantizer is None:
+                raise NotImplementedError(
+                    "only the f0-VQ pitch path is ported (f0_quantizer)")
+            self.fo_vqvae = FoVQVAE(cfg.f0_quantizer)
+            self.emb_p = nn.Embedding(cfg.f0_quantizer.l_bins,
+                                      cfg.embedding_dim)
+        if cfg.multispkr and not cfg.external_speaker_emb:
+            self.emb_s = nn.Embedding(cfg.spk_embeddings, cfg.embedding_dim)
+        self.generator = Generator(cfg.hifigan)
+        self.requires_grad_(False)
+
+    def forward(self, code, f0=None, emb=None, spkr=None):
+        """code (B, F) int; f0 (B, 1, Ff) float; emb (B, E) float d-vector
+        or spkr (B,)/(B, 1) int ids."""
+        cfg = self.cfg
+        feats = emb_c = self.emb_c(code).transpose(1, 2)      # (B, D, F)
+        if cfg.use_f0:
+            z_p = self.fo_vqvae.encode_units(f0)
+            emb_p = self.emb_p(z_p).transpose(1, 2)           # (B, D, Fp)
+            if emb_c.shape[-1] < emb_p.shape[-1]:
+                emb_c = repeat_upsample(emb_c, emb_p.shape[-1])
+            else:
+                emb_p = repeat_upsample(emb_p, emb_c.shape[-1])
+            feats = torch.cat([emb_c, emb_p], dim=1)
+        if cfg.multispkr:
+            if cfg.external_speaker_emb:
+                if emb is None:
+                    raise ValueError(
+                        "multispkr with external_speaker_emb=True requires "
+                        "an `emb` d-vector input")
+                emb_s = emb
+            else:
+                emb_s = self.emb_s(spkr.reshape(spkr.shape[0]))
+            feats = torch.cat(
+                [feats, repeat_upsample(emb_s, feats.shape[-1])], dim=1)
+        return self.generator(feats)

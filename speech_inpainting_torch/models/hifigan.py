@@ -1,10 +1,28 @@
-"""HiFi-GAN generator configuration (the reference's config_v1.json keys)."""
+"""HiFi-GAN generator over folded weights, and its configuration (the
+reference's config_v1.json keys).
+
+Counterpart of speech_inpainting_tpu/models/hifigan.py:Generator. There the
+convs are weight-normed (v, g) flax modules folded on every call; here weight
+norm is folded once, when the weights are loaded (convert/from_jax.py), as
+the reference's remove_weight_norm does. `Generator` sends each ResBlock1
+through `ops.resblock.resblock1_forward`, one K2 kernel launch per residual
+step when the generator lies on the card; models/hifigan_fast.py's
+`FastGenerator` overrides only that call, for K1. The other convs are
+torch's. Only ResBlock1 generators (V1, V2, the I_da unit vocoder) are ported
+so far.
+"""
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.resblock import resblock1_forward, resblock1_reference
+
+LRELU_SLOPE = 0.1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,3 +58,64 @@ class HiFiGANConfig:
             in_dim=h.get("model_in_dim", h.get("num_mels", 80)) or 80,
             sampling_rate=h.get("sampling_rate", 22050),
         )
+
+
+class Generator(nn.Module):
+    """mel/features (B, in_dim, F) → waveform (B, 1, F·∏upsample_rates).
+
+    Parameters hold the folded kernels in the torch layouts: `conv_pre`,
+    `ups[i]`, `conv_post` as Conv1d/ConvTranspose1d modules and, per
+    ResBlock1, `resblocks[i·nk + j]` with w1, w2 (S, C, C, K) and b1, b2
+    (S, C). `use_kernel = False` routes the ResBlock1s through the plain
+    version instead, for holding the kernel path against it.
+    """
+
+    def __init__(self, cfg: HiFiGANConfig):
+        super().__init__()
+        if cfg.resblock != "1":
+            raise NotImplementedError("only ResBlock1 generators are ported")
+        self.cfg = cfg
+        self.use_kernel = True
+        c0 = cfg.upsample_initial_channel
+        self.conv_pre = nn.Conv1d(cfg.in_dim, c0, 7, padding=3)
+        self.ups = nn.ModuleList()
+        self.resblocks = nn.ModuleList()
+        for i, (u, k) in enumerate(zip(cfg.upsample_rates,
+                                       cfg.upsample_kernel_sizes)):
+            ch = c0 // (2 ** (i + 1))
+            self.ups.append(nn.ConvTranspose1d(ch * 2, ch, k, stride=u,
+                                               padding=(k - u) // 2))
+            for rk, rd in zip(cfg.resblock_kernel_sizes,
+                              cfg.resblock_dilation_sizes):
+                s = len(rd)
+                self.resblocks.append(nn.ParameterDict({
+                    "w1": nn.Parameter(torch.empty(s, ch, ch, rk)),
+                    "b1": nn.Parameter(torch.empty(s, ch)),
+                    "w2": nn.Parameter(torch.empty(s, ch, ch, rk)),
+                    "b2": nn.Parameter(torch.empty(s, ch)),
+                }))
+        self.conv_post = nn.Conv1d(c0 // 2 ** len(cfg.upsample_rates), 1, 7,
+                                   padding=3)
+        self.requires_grad_(False)
+
+    def resblock(self, x, p, dilations):
+        """One ResBlock1: K2 once per step (on the card), or the plain
+        version."""
+        if self.use_kernel:
+            return resblock1_forward(x, p, dilations)
+        return resblock1_reference(x, p["w1"], p["b1"], p["w2"], p["b2"],
+                                   dilations)
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        nk = len(cfg.resblock_kernel_sizes)
+        x = self.conv_pre(mel.to(self.conv_pre.weight.dtype))
+        for i, up in enumerate(self.ups):
+            x = up(F.leaky_relu(x, LRELU_SLOPE))
+            xs = None
+            for j, rd in enumerate(cfg.resblock_dilation_sizes):
+                out = self.resblock(x, self.resblocks[i * nk + j], tuple(rd))
+                xs = out if xs is None else xs + out
+            x = xs / nk
+        x = F.leaky_relu(x, 0.01)  # torch's default slope before conv_post
+        return torch.tanh(self.conv_post(x))

@@ -141,7 +141,12 @@ class EncoderLayer(nn.Module):
 
 
 class HubertModel(nn.Module):
-    """Waveform (B, T) → frame embeddings (B, frames, hidden)."""
+    """Waveform (B, T) → frame embeddings (B, frames, hidden).
+
+    `tap_layer` N returns the hidden states after N transformer layers (the
+    fairseq `output_layer=N` convention), None the output of them all. Base
+    is post-LN, so no final LayerNorm follows in either case.
+    """
 
     def __init__(self, cfg: HubertConfig):
         super().__init__()
@@ -155,10 +160,10 @@ class HubertModel(nn.Module):
         self.layers = nn.ModuleList(EncoderLayer(cfg)
                                     for _ in range(cfg.num_hidden_layers))
 
-    def forward(self, wav):
+    def forward(self, wav, tap_layer: int | None = None):
         x = self.fp_projection(self.fp_layer_norm(self.feature_extractor(wav)))
         x = self.encoder_layer_norm(x + self.pos_conv_embed(x))
-        for layer in self.layers:
+        for layer in self.layers[:tap_layer]:
             x = layer(x)
         return x
 

@@ -20,11 +20,19 @@ def _wn(rng, shape, std=None):
     return v, np.sqrt((v * v).sum(axis=tuple(range(1, v.ndim))))
 
 
-def generator_tree(cfg, rng) -> dict:
-    def conv(shape, n_out, std=0.01):
+def generator_tree(cfg, rng, carry: bool = False) -> dict:
+    """HiFi-GAN's init: N(0, 0.01) convs, which pass on only 3-12% of each
+    stage's input, so that the biases set the waveform. `carry=True` draws
+    every conv with std 1/√(inputs per output) and zero biases instead: each
+    stage then passes its input on at a gain near 1, and the waveform moves
+    with the features (a test that holds the conditioning needs this)."""
+    def conv(shape, n_out, std=0.01, fan_in=None):
+        n_in = int(np.prod(shape[1:]))
+        if carry:
+            v, g = _wn(rng, shape, 1.0 / math.sqrt(fan_in or n_in))
+            return {"v": v, "g": g, "b": np.zeros(n_out, np.float32)}
         v, g = _wn(rng, shape, std)
-        b = rng.uniform(-1, 1, n_out).astype(np.float32) / math.sqrt(
-            int(np.prod(shape[1:])))
+        b = rng.uniform(-1, 1, n_out).astype(np.float32) / math.sqrt(n_in)
         return {"v": v, "g": g, "b": b}
 
     c0 = cfg.upsample_initial_channel
@@ -32,7 +40,8 @@ def generator_tree(cfg, rng) -> dict:
     for i, (u, k) in enumerate(zip(cfg.upsample_rates,
                                    cfg.upsample_kernel_sizes)):
         ch = c0 // 2 ** (i + 1)
-        tree[f"ups_{i}"] = conv((2 * ch, ch, k), ch)
+        # a transposed conv's output sums 2·ch·k/u products
+        tree[f"ups_{i}"] = conv((2 * ch, ch, k), ch, fan_in=2 * ch * k // u)
         for j, (rk, rd) in enumerate(zip(cfg.resblock_kernel_sizes,
                                          cfg.resblock_dilation_sizes)):
             tree[f"resblocks_{i}_{j}"] = {
@@ -42,42 +51,104 @@ def generator_tree(cfg, rng) -> dict:
     return tree
 
 
-def hubert_tree(cfg, out_dim, rng) -> dict:
-    def normal(shape, fan_in, gain=1.0):
-        return (rng.standard_normal(shape) * gain / math.sqrt(fan_in)
-                ).astype(np.float32)
+def _normal(rng, shape, fan_in, gain=1.0):
+    return (rng.standard_normal(shape) * gain / math.sqrt(fan_in)
+            ).astype(np.float32)
 
-    def dense(n_in, n_out):
-        return {"kernel": normal((n_in, n_out), n_in),
-                "bias": np.zeros(n_out, np.float32)}
 
-    def norm(n):
-        return {"scale": np.ones(n, np.float32), "bias": np.zeros(n, np.float32)}
+def _dense(rng, n_in, n_out):
+    return {"kernel": _normal(rng, (n_in, n_out), n_in),
+            "bias": np.zeros(n_out, np.float32)}
 
+
+def _norm(n):
+    return {"scale": np.ones(n, np.float32), "bias": np.zeros(n, np.float32)}
+
+
+def hubert_model_tree(cfg, rng) -> dict:
+    """The headless `HubertModel` tree (I_da taps it)."""
     h = cfg.hidden_size
     fe, c_in = {}, 1
     for i, (c, k) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel)):
-        fe[f"conv_{i}_w"] = normal((c, c_in, k), c_in * k, math.sqrt(2.0))
+        fe[f"conv_{i}_w"] = _normal(rng, (c, c_in, k), c_in * k,
+                                    math.sqrt(2.0))
         c_in = c
-    fe["norm_0"] = norm(cfg.conv_dim[0])
+    fe["norm_0"] = _norm(cfg.conv_dim[0])
     k, g = cfg.num_conv_pos_embeddings, cfg.num_conv_pos_embedding_groups
-    v = normal((h, h // g, k), h // g * k, math.sqrt(2.0))
-    hub = {"feature_extractor": fe, "fp_layer_norm": norm(cfg.conv_dim[-1]),
-           "fp_projection": dense(cfg.conv_dim[-1], h),
+    v = _normal(rng, (h, h // g, k), h // g * k, math.sqrt(2.0))
+    hub = {"feature_extractor": fe, "fp_layer_norm": _norm(cfg.conv_dim[-1]),
+           "fp_projection": _dense(rng, cfg.conv_dim[-1], h),
            "pos_conv_embed": {
                "conv_v": v, "conv_g": np.sqrt((v * v).sum(axis=(0, 1))),
                "conv_b": np.zeros(h, np.float32)},
-           "encoder_layer_norm": norm(h)}
+           "encoder_layer_norm": _norm(h)}
     for i in range(cfg.num_hidden_layers):
         hub[f"layers_{i}"] = {
-            "attention": {n: dense(h, h) for n in
+            "attention": {n: _dense(rng, h, h) for n in
                           ("q_proj", "k_proj", "v_proj", "out_proj")},
             "feed_forward": {
-                "intermediate_dense": dense(h, cfg.intermediate_size),
-                "output_dense": dense(cfg.intermediate_size, h)},
-            "layer_norm": norm(h), "final_layer_norm": norm(h)}
+                "intermediate_dense": _dense(rng, h, cfg.intermediate_size),
+                "output_dense": _dense(rng, cfg.intermediate_size, h)},
+            "layer_norm": _norm(h), "final_layer_norm": _norm(h)}
+    return hub
+
+
+def hubert_tree(cfg, out_dim, rng) -> dict:
+    """The I_ea `EncoderWithHead` tree: HuBERT and a LayerNorm/Linear head."""
+    hub = hubert_model_tree(cfg, rng)
+    h = cfg.hidden_size
     return {"hubert": hub,
-            "head": {"layer_norm": norm(h), "linear": dense(h, out_dim)}}
+            "head": {"layer_norm": _norm(h),
+                     "linear": _dense(rng, h, out_dim)}}
+
+
+def codegen_tree(cfg, rng) -> tuple[dict, dict]:
+    """The `CodeGenerator` params and `vq` collection (unit-lookup regime):
+    N(0, 1) embedding tables, torch-default-scale jukebox convs, the
+    generator of `generator_tree(carry=True)` (the parity tests and
+    `chip_smoke.py` hold the features that reach it through the waveform),
+    and an f0-VQ codebook drawn N(0, 1) (training would have filled it; a
+    zero codebook sends every frame to code 0)."""
+    def conv(c_out, c_in, k):
+        bound = 1.0 / math.sqrt(c_in * k)
+        return {"w": rng.uniform(-bound, bound, (c_out, c_in, k)
+                                 ).astype(np.float32),
+                "b": rng.uniform(-bound, bound, c_out).astype(np.float32)}
+
+    def table(n, d):
+        return {"weight": rng.standard_normal((n, d)).astype(np.float32)}
+
+    params = {"emb_c": table(cfg.num_embeddings, cfg.embedding_dim)}
+    vq = {}
+    if cfg.use_f0:
+        q = cfg.f0_quantizer
+        enc, c_in = {}, q.encoder.input_emb_width
+        for level in range(q.encoder.levels):
+            e, w = q.encoder, q.encoder.width
+            stride = e.strides_t[level]
+            filt = stride * 2 + (stride % 2)
+            blk = {}
+            for i in range(e.downs_t[level]):
+                blk[f"down_{i}_conv"] = conv(w, c_in if i == 0 else w, filt)
+                blk[f"down_{i}_resnet"] = {
+                    f"block_{j}": {"conv3": conv(int(e.m_conv * w), w, 3),
+                                   "conv1": conv(w, int(e.m_conv * w), 1)}
+                    for j in range(e.depth)}
+            blk["proj"] = conv(e.output_emb_width, w, 3)
+            enc[f"level_{level}"] = blk
+            c_in = e.output_emb_width
+        params["fo_vqvae"] = {"encoder": enc}
+        params["emb_p"] = table(q.l_bins, cfg.embedding_dim)
+        vq = {"fo_vqvae": {"vq": {f"level_{i}": {
+            "k": rng.standard_normal((q.l_bins, q.emb_width)
+                                     ).astype(np.float32),
+            "k_sum": np.zeros((q.l_bins, q.emb_width), np.float32),
+            "k_elem": np.zeros(q.l_bins, np.float32),
+            "initted": np.ones((), bool)} for i in range(q.levels)}}}
+    if cfg.multispkr and not cfg.external_speaker_emb:
+        params["emb_s"] = table(cfg.spk_embeddings, cfg.embedding_dim)
+    params["generator"] = generator_tree(cfg.hifigan, rng, carry=True)
+    return params, vq
 
 
 def synthetic_batch(rng, batch: int, seconds: float, mask_frames: int = 10):
@@ -104,3 +175,26 @@ def synthetic_batch(rng, batch: int, seconds: float, mask_frames: int = 10):
     pos = rng.integers(1, n_frames - mask_frames - 1, batch)
     return (np.stack(w22), np.stack(w16), pos.astype(np.int64),
             np.full(batch, mask_frames, np.int64))
+
+
+def synthetic_utterance(rng, seconds: float, sr: int = 16000) -> np.ndarray:
+    """One speech-like utterance: voiced stretches (a few harmonics of a
+    gliding pitch between 100 and 220 Hz, peak 0.5) separated by silence
+    with a faint noise floor, so that an f0 track has clearly voiced and
+    clearly unvoiced frames."""
+    n = int(round(sr * seconds))
+    x = 1e-4 * rng.standard_normal(n)
+    t0 = 0
+    while t0 < n:
+        voiced = int(sr * rng.uniform(0.25, 0.6))
+        t = np.arange(min(voiced, n - t0)) / sr
+        if t.size < sr // 100:   # no room left for a 10 ms stretch
+            break
+        f0, glide = rng.uniform(100, 220), rng.uniform(-30, 30)
+        phase = 2 * np.pi * (f0 * t + 0.5 * glide * t * t)
+        amps = rng.uniform(0.3, 1.0, 4) / np.arange(1, 5)
+        seg = sum(a * np.sin((k + 1) * phase) for k, a in enumerate(amps))
+        ramp = np.minimum(1.0, np.minimum(t, t[-1] - t) / 0.01)
+        x[t0:t0 + t.size] += 0.5 * seg / np.abs(seg).max() * ramp
+        t0 += t.size + int(sr * rng.uniform(0.1, 0.25))
+    return x.astype(np.float32)

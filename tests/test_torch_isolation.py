@@ -76,17 +76,27 @@ def test_entry_points_refuse_the_cpu_unasked():
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device is usable")
     from speech_inpainting_torch import resolve_device
-    from speech_inpainting_torch.convert.from_jax import generator_from_jax
+    from speech_inpainting_torch.convert.from_jax import (
+        codegen_from_jax, generator_from_jax, hubert_model_from_jax)
+    from speech_inpainting_torch.infer.ida_inpaint import IdaInpainter
     from speech_inpainting_torch.infer.inpaint import (InformedInpainter,
                                                        InpainterConfig)
+    from speech_inpainting_torch.infer.resynth import Resynthesizer
+    from speech_inpainting_torch.models.codegen import CodeGeneratorConfig
     from speech_inpainting_torch.models.hifigan import HiFiGANConfig
     from speech_inpainting_torch.models.hubert import HubertConfig
     assert resolve_device("cpu").type == "cpu"
+    cg = CodeGeneratorConfig(HiFiGANConfig(), use_f0=False)
     for call in (lambda: resolve_device(),
                  lambda: generator_from_jax(HiFiGANConfig(), {}),
                  lambda: InformedInpainter(
                      InpainterConfig(HubertConfig.base(), HiFiGANConfig()),
-                     {}, {}, np.zeros((3, 80), np.float32))):
+                     {}, {}, np.zeros((3, 80), np.float32)),
+                 lambda: codegen_from_jax(cg, {}, {}),
+                 lambda: hubert_model_from_jax(HubertConfig.base(), {}),
+                 lambda: Resynthesizer(cg, {}, {}),
+                 lambda: IdaInpainter(cg, {}, {}, HubertConfig.base(), {},
+                                      np.zeros((3, 768), np.float32))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

@@ -1,8 +1,9 @@
-"""The fused ResBlock1's wrapper and plain version (speech_inpainting_torch.
-ops.resblock) against the TPU kernel in interpret mode and the unfused JAX
-chain, on the CPU in float32, at tests/test_pallas.py's shapes and tolerance
-(atol 3e-5). The CUDA kernel itself runs only on the card: chip_smoke.py
-holds it against the plain version there."""
+"""The fused ResBlock1 wrappers and plain versions (speech_inpainting_torch.
+ops.resblock) against the TPU kernels in interpret mode and the unfused JAX
+chain, on the CPU in float32, at tests/test_pallas.py's shapes and
+tolerances: atol 3e-5 for a whole block (K1), 2e-5 for one step (K2) and for
+`resblock1_forward`'s chain of steps. The CUDA kernel itself runs only on
+the card: chip_smoke.py holds it against the plain versions there."""
 import numpy as np
 import pytest
 import torch
@@ -12,7 +13,12 @@ import jax.numpy as jnp
 
 from speech_inpainting_tpu.ops.conv import conv1d, get_padding
 from speech_inpainting_tpu.ops.pallas_resblock import fused_resblock1 as tpu_k1
+from speech_inpainting_tpu.ops.pallas_resblock import \
+    fused_resblock_step as tpu_k2
+from speech_inpainting_tpu.ops.pallas_resblock import \
+    resblock1_forward as tpu_resblock1_forward
 from speech_inpainting_torch.ops import resblock
+from speech_inpainting_torch.ops.conv import weight_norm_kernel
 
 
 def _unfused_jax(x, w1, b1, w2, b2, dilations, K):
@@ -54,7 +60,55 @@ def test_resblock1_matches_tpu_kernel_and_chain(rng, B, C, T, K):
     assert resblock.fused_resblock1.launches == before
 
 
+# test_pallas.py's K2 cases: (weight scale, biases) as there
+@pytest.mark.parametrize("B,C,T,K,D,scale,bias", [
+    (2, 32, 300, 3, 5, 0.1, True), (1, 16, 257, 11, 3, 0.05, False)])
+def test_resblock_step_matches_tpu_kernel(rng, B, C, T, K, D, scale, bias):
+    def normal(shape, std):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    b_std = 0.1 if bias else 0.0
+    arrs = (normal((B, C, T), 1.0), normal((C, C, K), scale),
+            normal(C, b_std), normal((C, C, K), scale), normal(C, b_std))
+    want = np.asarray(tpu_k2(*(jnp.asarray(a) for a in arrs), dilation=D,
+                             tile=128, interpret=True))
+    t = [torch.tensor(a) for a in arrs]
+    plain = resblock.resblock_step_reference(*t, D).numpy()
+    np.testing.assert_allclose(plain, want, atol=2e-5)
+    before = resblock.fused_resblock_step.launches
+    np.testing.assert_array_equal(
+        resblock.fused_resblock_step(*t, D).numpy(), plain)
+    assert resblock.fused_resblock_step.launches == before
+
+
+@pytest.mark.parametrize("B,C,T,K", [(2, 32, 300, 3), (1, 16, 257, 11)])
+def test_resblock1_forward_matches_jax(rng, B, C, T, K):
+    """The flax ResBlock1 tree, folded by JAX on every call and by the port
+    once, through JAX's chain of K2 calls and the port's."""
+    dils = (1, 3, 5)
+    x = rng.standard_normal((B, C, T)).astype(np.float32)
+    tree = {f"convs{n}_{s}": {
+        "v": rng.standard_normal((C, C, K)).astype(np.float32),
+        "g": rng.uniform(0.1, 0.4, C).astype(np.float32),
+        "b": rng.standard_normal(C).astype(np.float32) * 0.1}
+        for n in (1, 2) for s in range(len(dils))}
+    want = np.asarray(tpu_resblock1_forward(
+        jnp.asarray(x), jax.tree_util.tree_map(jnp.asarray, tree), K, dils,
+        tile=128, interpret=True))
+    block = {}
+    for n in ("1", "2"):
+        convs = [tree[f"convs{n}_{s}"] for s in range(len(dils))]
+        block["w" + n] = torch.stack([weight_norm_kernel(
+            torch.tensor(c["v"]), torch.tensor(c["g"])) for c in convs])
+        block["b" + n] = torch.stack([torch.tensor(c["b"]) for c in convs])
+    got = resblock.resblock1_forward(torch.tensor(x), block, dils).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
 def test_wrapper_refuses_devices_without_a_kernel(rng):
     t = [torch.tensor(a, device="meta") for a in _inputs(rng, 1, 8, 16, 3)]
     with pytest.raises(ValueError, match="no kernel"):
         resblock.fused_resblock1(*t, (1, 3, 5))
+    with pytest.raises(ValueError, match="no kernel"):
+        resblock.fused_resblock_step(t[0], t[1][0], t[2][0], t[3][0],
+                                     t[4][0], 3)
