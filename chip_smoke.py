@@ -2,23 +2,31 @@
 """Drive the PyTorch/CUDA port (speech_inpainting_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --unpinned    # the control of `default_flags`
 
 Phases, each printing JSON lines as it goes (flushed, so a cut run shows where
 it stopped); any failure raises and exits non-zero:
   device        the card's name and power limit (also printed as nvidia-smi
                 gives them, on a line of their own);
-  build         compiles the kernel source with nvcc: seconds and ptxas's
-                register counts;
-  kernel_check  the fused ResBlock1 kernel against its plain PyTorch version
+  build         compiles the kernel source with nvcc: seconds, the number
+                of kernel instantiations, their most registers and how many
+                spill (listed by type, tile, conv and K in the `spills` line
+                at the end, with the paths whose plans take each);
+  kernel_check  K1 (the fused ResBlock1) against its plain PyTorch version
                 at the 12 (C, K) shapes of HiFi-GAN V1 with odd T, in float32
                 (atol 3e-5) and bfloat16 (rel 3e-2);
+  edge_check    K1 and K2 against their plain versions at edge shapes: T
+                shorter than one time tile, T not a multiple of 8, B = 3,
+                C = 16 with K = 11, d = 5 (same tolerances);
   main          informed inpainting at full width (HuBERT-base + V1, random
                 weights from a seed, 100×80 codebook) on B = 4 synthetic 4 s
-                utterances with 200 ms masks: kernel launches, kernel path vs
-                plain path, card vs CPU on a short input, bf16 throughput;
-  kernel_time   the kernel against its plain version at the main path's
-                shapes (same tolerances), then kernel, plain version and
-                library chain timed there, beside the card's bound;
+                utterances with 200 ms masks: kernel launches (two per
+                residual step), kernel path vs plain path, card vs CPU on a
+                short input, bf16 throughput;
+  kernel_time   K1 against its plain version at the main path's shapes
+                (same tolerances), then kernel, plain version and library
+                chain timed there, per stage and per forward, beside the
+                card's bound;
   ida_main      decoder-adaptation inpainting (I_da) at full width
                 (HuBERT-base tapped at layer 6, 100×768 centroids, the
                 CodeGenerator of configs/da_hubert100_lut.json, a 128-wide
@@ -33,8 +41,25 @@ it stopped); any failure raises and exits non-zero:
                 the 45 (C, K, dilation) shapes of the I_da generator, at the
                 path's own B and T (same tolerances);
   ida_kernel_time   K2, its plain version and the library chain timed at
-                those shapes, summed per vocoder call, beside the bound.
-Then the `kernels` line, and last {"ok": true, "device": {...}}.
+                those shapes, summed per stage and per vocoder call, beside
+                the bound;
+  default_flags both entry points again under torch's default TF32 flags
+                (cuDNN may use TF32 for float32 convolutions): the entry
+                points pin full float32 themselves, so the card-vs-CPU gates
+                must hold, and so must HuBERT's outputs inside each entry
+                point (read by forward hooks) at the features' tolerance;
+                the gaps of the modules called outside an entry point under
+                those flags are printed beside them.
+Then the `spills` and `kernels` lines, and last {"ok": true, "device": {...}}.
+
+`--unpinned` runs only `device`, `build` and `default_flags`, with the
+entry points' pinning made a no-op: the phase must then fail (exit 0 when
+it does, 1 when it passes), which shows that its gates see a missing pin.
+
+No phase sets the TF32 flags for the whole run: the entry points pin full
+float32 themselves (`speech_inpainting_torch.device.full_f32`), and the
+plain versions, the library timings and the module calls made outside an
+entry point run inside `full_f32()` here.
 
 Exits 1 without printing a result when no CUDA device is present.
 """
@@ -43,6 +68,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -66,7 +92,11 @@ IDA_TAP = 6        # cli/inpaint_da.py's default HuBERT layer
 IDA_SECONDS = 4.0
 IDA_MASK = 3200    # 200 ms at 16 kHz, at the default start of 1.5 s
 IDA_UTTERANCES = 3
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM, dense
+# H100 SXM, dense: bf16 on the tensor cores, f32 outside them (the FMA
+# figure), and TF32 on the tensor cores, which the f32 kernel route uses
+# three times per f32 product (3×TF32)
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 
@@ -89,14 +119,41 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def resblock_bound_ms(B, C, T, K, S, dtype_name) -> tuple[float, float]:
-    """The two floors of one ResBlock1, in ms: its FLOP over the type's peak,
-    and its bytes (each input read once, the output written once) over the
-    memory rate. The least time is the larger."""
+def resblock_bound_ms(B, C, T, K, S, dtype_name,
+                      route=True) -> tuple[float, float]:
+    """The two floors of one ResBlock1, in ms: its FLOP over the peak rate of
+    the kernel's route for the type, and its bytes (each input read once,
+    the output written once) over the memory rate. The least time is the
+    larger. bf16 runs on the tensor cores; f32 on them as 3×TF32 (three
+    products per f32 one) or, with route=False, the FMA figure outside
+    them."""
     size = 4 if dtype_name == "float32" else 2
     flops = 4.0 * S * C * C * K * T * B
-    nbytes = size * (2 * B * C * T + 2 * S * C * C * K) + 4 * 2 * S * C
-    return 1e3 * flops / PEAK_FLOPS[dtype_name], 1e3 * nbytes / PEAK_BYTES
+    nbytes = size * (2 * B * C * T + 2 * S * C * C * K + 2 * S * C)
+    if dtype_name == "float32" and route:
+        t_ops = 3 * flops / PEAK_TF32
+    else:
+        t_ops = flops / PEAK_FLOPS[dtype_name]
+    return 1e3 * t_ops, 1e3 * nbytes / PEAK_BYTES
+
+
+def pinned(fn, *args):
+    """fn(*args) in full float32 (TF32 off): the plain versions' calls."""
+    from speech_inpainting_torch.device import full_f32
+    with full_f32():
+        return fn(*args)
+
+
+def library_ms(torch, fn, iters):
+    """The library yardstick: the same F.conv1d chain with cuDNN's
+    autotuner choosing each convolution's algorithm, TF32 off."""
+    from speech_inpainting_torch.device import full_f32
+    torch.backends.cudnn.benchmark = True
+    try:
+        with full_f32():
+            return cuda_ms(fn, iters, warmup=2)
+    finally:
+        torch.backends.cudnn.benchmark = False
 
 
 # ------------------------------------------------------------------- phases
@@ -114,15 +171,61 @@ def phase_device(torch) -> dict:
     return info
 
 
-def phase_build() -> None:
+# resblock_conv<T, WM, WN, MT, NT, KSPLIT, kConv2, K> as nvcc mangles it
+_KERNEL_NAME = re.compile(
+    r"resblock_convI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E"
+    r"Li(\d+)ELb([01])ELi(\d+)E")
+
+
+def _ptxas_table(log: str) -> list[dict]:
+    """ptxas's registers and spill bytes for each instantiation of the
+    kernel template in nvcc's -Xptxas -v output, by (type, tile, conv, K);
+    the tile is (16·MT·WM output channels, 8·NT·WN positions)."""
+    rows, cur = {}, None
+    for ln in log.splitlines():
+        m = _KERNEL_NAME.search(ln)
+        if m and ("Compiling entry function" in ln
+                  or "Function properties for" in ln):
+            t, wm, wn, mt, nt, _, conv2, k = m.groups()
+            key = ("float32" if t == "f" else "bfloat16",
+                   16 * int(mt) * int(wm), 8 * int(nt) * int(wn),
+                   2 if conv2 == "1" else 1, int(k))
+            cur = rows.setdefault(key, dict(zip(
+                ("dtype", "co_tile", "t_tile", "conv", "K"), key)))
+        elif cur is not None and "spill stores" in ln:
+            nums = [int(v) for v in re.findall(r"(\d+) bytes", ln)]
+            cur["spill_stores"], cur["spill_loads"] = nums[1], nums[2]
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             ln).group(1))
+    return list(rows.values())
+
+
+def phase_build() -> list[dict]:
+    """Builds the kernels; returns ptxas's counts of the instantiations
+    that spill (`_ptxas_table`), which `main` marks with the paths whose
+    plans take them."""
     from speech_inpainting_torch.kernels import build
     t0 = time.perf_counter()
     done = build.build("resblock1")
-    log = done["log"] if done else ""
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    table = _ptxas_table(done["log"]) if done else []
+    spills = [r for r in table
+              if r.get("spill_stores") or r.get("spill_loads")]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "compiled": done is not None, "ptxas": ptxas})
+          "compiled": done is not None, "instantiations": len(table),
+          "max_registers": max((r.get("registers", 0) for r in table),
+                               default=None),
+          "spilling": len(spills)})
+    return spills
+
+
+def _plan_tiles(B, stage_T, kernel_sizes, dilations) -> set:
+    """(co tile, time tile, K) of every launch a path's plans take."""
+    from speech_inpainting_torch.ops.resblock import _plan
+    return {(p.co_tile, p.t_tile, K)
+            for C, T in stage_T.items()
+            for K, dils in zip(kernel_sizes, dilations) for d in dils
+            for p in [_plan(B, C, T, K, d)]}
 
 
 def _resblock_inputs(rng, B, C, T, K, S, torch, dtype):
@@ -148,11 +251,11 @@ def phase_kernel_check(torch) -> dict:
         for K in (3, 7, 11):
             f32 = _resblock_inputs(rng, 2, C, 2049, K, S, torch, torch.float32)
             got = fused_resblock1(*f32, dils)
-            want = resblock1_reference(*f32, dils)
+            want = pinned(resblock1_reference, *f32, dils)
             err = (got - want).abs().max().item()
             bf = [t.to(torch.bfloat16) for t in f32]
             got_b = fused_resblock1(*bf, dils).float()
-            want_b = resblock1_reference(*bf, dils).float()
+            want_b = pinned(resblock1_reference, *bf, dils).float()
             rel = ((got_b - want_b).abs().max() / want_b.abs().max()).item()
             torch.cuda.synchronize()
             ok = err <= F32_ATOL and rel <= BF16_RTOL
@@ -165,6 +268,59 @@ def phase_kernel_check(torch) -> dict:
             worst["f32_max_abs_err"] = max(worst["f32_max_abs_err"], err)
             worst["bf16_rel_err"] = max(worst["bf16_rel_err"], rel)
     return worst
+
+
+# T shorter than one time tile, T not a multiple of 8, B = 3, and C = 16
+# with K = 11, d = 5: (B, C, T, K) for K1 (dilations 1, 3, 5), each of whose
+# steps is also a K2 shape
+EDGE_SHAPES = [(1, 256, 5, 3), (1, 256, 37, 11), (1, 16, 5, 11),
+               (1, 16, 37, 11), (3, 128, 1001, 7), (3, 32, 1001, 11),
+               (3, 16, 1001, 11)]
+
+
+def phase_edge_check(torch) -> dict:
+    """K1 and K2 against their plain versions at EDGE_SHAPES, f32 atol and
+    bf16 rel as in `phase_kernel_check`."""
+    from speech_inpainting_torch.ops.resblock import (
+        fused_resblock1, fused_resblock_step, resblock1_reference,
+        resblock_step_reference)
+    rng = np.random.default_rng(SEED + 2)
+    dils, S = (1, 3, 5), 3
+    worst = {name: {"f32_max_abs_err": 0.0, "bf16_rel_err": 0.0, "shapes": 0}
+             for name in ("K1", "K2")}
+    for B, C, T, K in EDGE_SHAPES:
+        f32 = _resblock_inputs(rng, B, C, T, K, S, torch, torch.float32)
+        cases = [("K1", fused_resblock1, resblock1_reference, f32, dils)]
+        cases += [("K2", fused_resblock_step, resblock_step_reference,
+                   [f32[0]] + [t[s] for t in f32[1:]], d)
+                  for s, d in enumerate(dils)]
+        for name, kernel, ref, args, dil in cases:
+            err = (kernel(*args, dil) - pinned(ref, *args, dil)).abs().max()
+            bf = [t.to(torch.bfloat16) for t in args]
+            got, want = kernel(*bf, dil).float(), pinned(ref, *bf, dil).float()
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            err = err.item()
+            ok = err <= F32_ATOL and rel <= BF16_RTOL
+            emit({"phase": "edge_check", "kernel": name, "B": B, "C": C,
+                  "T": T, "K": K, "dilation": dil, "f32_max_abs_err": err,
+                  "bf16_rel_err": rel, "ok": ok})
+            if not ok:
+                raise AssertionError(f"{name} disagrees at edge shape B={B} "
+                                     f"C={C} T={T} K={K} d={dil}: f32 {err}, "
+                                     f"bf16 rel {rel}")
+            w = worst[name]
+            w["f32_max_abs_err"] = max(w["f32_max_abs_err"], err)
+            w["bf16_rel_err"] = max(w["bf16_rel_err"], rel)
+            w["shapes"] += 1
+    emit({"phase": "edge_check_summary", **worst})
+    return worst
+
+
+def _stage_sums(stages: dict, C: int, row: dict) -> None:
+    acc = stages.setdefault(C, {"ms": 0.0, "plain_ms": 0.0,
+                                "library_ms": 0.0, "bound_ms": 0.0})
+    for key in acc:
+        acc[key] += row[key]
 
 
 def phase_kernel_time(torch, stage_T: dict) -> dict:
@@ -181,13 +337,14 @@ def phase_kernel_time(torch, stage_T: dict) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-               "err": 0.0}
+               "bound_fma_ms": 0.0, "err": 0.0}
         floors = {"operations": 0.0, "bytes": 0.0}
+        stages = {}
         for C, T in stage_T.items():
             for K in (3, 7, 11):
                 args = _resblock_inputs(rng, 4, C, T, K, S, torch, dtype)
                 got = fused_resblock1(*args, dils).float()
-                want = resblock1_reference(*args, dils).float()
+                want = pinned(resblock1_reference, *args, dils).float()
                 err, tol = (got - want).abs().max().item(), F32_ATOL
                 if dtype == torch.bfloat16:
                     err, tol = err / want.abs().max().item(), BF16_RTOL
@@ -198,31 +355,45 @@ def phase_kernel_time(torch, stage_T: dict) -> dict:
                         f"B=4 C={C} T={T} K={K} {name}: {err} > {tol}")
                 tot["err"] = max(tot["err"], err)
                 ms = cuda_ms(lambda: fused_resblock1(*args, dils), 3)
-                plain = cuda_ms(lambda: resblock1_reference(*args, dils), 3)
-                # the library yardstick: the same F.conv1d chain with
-                # cuDNN's autotuner choosing each convolution's algorithm
-                torch.backends.cudnn.benchmark = True
-                lib = cuda_ms(lambda: resblock1_reference(*args, dils), 3,
-                              warmup=2)
-                torch.backends.cudnn.benchmark = False
+                plain_ms = cuda_ms(
+                    lambda: pinned(resblock1_reference, *args, dils), 3)
+                lib = library_ms(
+                    torch, lambda: resblock1_reference(*args, dils), 3)
                 t_ops, t_bytes = resblock_bound_ms(4, C, T, K, S, name)
                 bound = max(t_ops, t_bytes)
+                row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+                       "bound_ms": bound}
                 emit({"phase": "kernel_time", "dtype": name, "B": 4, "C": C,
-                      "T": T, "K": K, "err": err, "tolerance": tol,
-                      "ms": ms, "plain_ms": plain,
-                      "library_ms": lib, "bound_ms": bound,
+                      "T": T, "K": K, "err": err, "tolerance": tol, **row,
                       "bound_by": "operations" if t_ops >= t_bytes
                       else "bytes"})
-                for key, v in (("ms", ms), ("plain_ms", plain),
-                               ("library_ms", lib), ("bound_ms", bound)):
+                _stage_sums(stages, C, row)
+                for key, v in row.items():
                     tot[key] += v
+                tot["bound_fma_ms"] += max(resblock_bound_ms(
+                    4, C, T, K, S, name, route=False))
                 floors["operations"] += t_ops
                 floors["bytes"] += t_bytes
+                del args
         # the sum of the 12 calls' floors is bound by what dominates it
         tot["bound_by"] = max(floors, key=floors.get)
+        tot["by_C"] = stages
         timed[name] = tot
         emit({"phase": "kernel_time_per_forward", "dtype": name, **tot})
     return timed
+
+
+def _ea_setup(rng) -> tuple:
+    """The full-width I_ea configuration (HuBERT-base + head, V1), its
+    trees and a 100×80 codebook, drawn from `rng`."""
+    from speech_inpainting_torch.infer.inpaint import InpainterConfig
+    from speech_inpainting_torch.models.hifigan import HiFiGANConfig
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    from speech_inpainting_torch.testing import generator_tree, hubert_tree
+    hcfg, gcfg = HubertConfig.base(), HiFiGANConfig()
+    hp, gp = hubert_tree(hcfg, 80, rng), generator_tree(gcfg, rng)
+    centroids = rng.standard_normal((100, 80)).astype(np.float32)
+    return InpainterConfig(hcfg, gcfg), hp, gp, centroids
 
 
 def phase_main(torch) -> dict:
@@ -232,17 +403,17 @@ def phase_main(torch) -> dict:
     from speech_inpainting_torch.models.hifigan import HiFiGANConfig
     from speech_inpainting_torch.models.hubert import HubertConfig
     from speech_inpainting_torch.ops.resblock import fused_resblock1
-    from speech_inpainting_torch.testing import (generator_tree, hubert_tree,
-                                                 synthetic_batch)
+    from speech_inpainting_torch.device import full_f32
+    from speech_inpainting_torch.testing import synthetic_batch
     rng = np.random.default_rng(SEED)
-    hcfg, gcfg = HubertConfig.base(), HiFiGANConfig()
-    hp, gp = hubert_tree(hcfg, 80, rng), generator_tree(gcfg, rng)
-    centroids = rng.standard_normal((100, 80)).astype(np.float32)
+    setup = _ea_setup(rng)
+    cfg, hp, gp, centroids = setup
+    hcfg, gcfg = cfg.hubert, cfg.hifigan
     B, seconds = 4, 4.0
     w22, w16, pos, lens = synthetic_batch(rng, B, seconds)
-    inp = InformedInpainter(InpainterConfig(hcfg, gcfg), hp, gp, centroids)
-    # one kernel launch per residual step: 4 stages × 3 blocks × 3 steps
-    n_launches = len(gcfg.upsample_rates) * sum(
+    inp = InformedInpainter(cfg, hp, gp, centroids)
+    # two kernel launches per residual step: 4 stages × 3 blocks × 3 steps
+    n_launches = 2 * len(gcfg.upsample_rates) * sum(
         len(d) for d in gcfg.resblock_dilation_sizes)
 
     fused_resblock1.launches = 0
@@ -265,8 +436,7 @@ def phase_main(torch) -> dict:
 
     # the same modules on the CPU, on a short input (the CPU runs the plain
     # ResBlock1 and torch's CPU convolutions)
-    cpu = InformedInpainter(InpainterConfig(hcfg, gcfg), hp, gp, centroids,
-                            device="cpu")
+    cpu = InformedInpainter(cfg, hp, gp, centroids, device="cpu")
     s22, s16, spos, slens = synthetic_batch(np.random.default_rng(SEED + 1),
                                             1, 0.5, mask_frames=5)
     on_card = inp.batch(s22, s16, spos, slens)["inpainted"].cpu()
@@ -302,7 +472,7 @@ def phase_main(torch) -> dict:
         inp16.batch(*dev)
     torch.cuda.synchronize()
     per_batch = (time.perf_counter() - t0) / iters
-    with torch.inference_mode():
+    with torch.inference_mode(), full_f32():
         mel = torch.zeros(B, 80, T_out // 256, device="cuda")
         gen_ms = cuda_ms(lambda: inp16.generator(mel), 3)
         hub_ms = cuda_ms(lambda: inp16.hubert(dev[1]), 3)
@@ -316,7 +486,10 @@ def phase_main(torch) -> dict:
           "frontend_ms": front_ms})
     return {"launches": launches,
             "T": {C: T_out // 256 * math.prod(gcfg.upsample_rates[:i + 1])
-                  for i, C in enumerate((256, 128, 64, 32))}}
+                  for i, C in enumerate((256, 128, 64, 32))},
+            "kernel_sizes": gcfg.resblock_kernel_sizes,
+            "dilations": gcfg.resblock_dilation_sizes,
+            "setup": setup}
 
 
 def _ida_setup(torch) -> dict:
@@ -373,7 +546,43 @@ def _unit_margin(torch, feats, centroids) -> float:
     return ((d[:, 1] - d[:, 0]) / d[:, 0].clamp(min=1e-6)).min().item()
 
 
+def _module_gaps(torch, inp, cpu, utt) -> dict:
+    """HuBERT's tapped features and the f0 track of one utterance, called
+    as modules outside an entry point, card against CPU, under the TF32
+    flags the caller has set."""
+    from speech_inpainting_torch.ops.f0 import extract_f0
+    with torch.inference_mode():
+        feat_card = inp.hubert(torch.as_tensor(utt, device="cuda")[None],
+                               tap_layer=IDA_TAP)[0].cpu()
+        feat_cpu = cpu.hubert(torch.as_tensor(utt)[None],
+                              tap_layer=IDA_TAP)[0]
+    f0_card = extract_f0(torch.as_tensor(utt, device="cuda")).cpu()
+    f0_cpu = extract_f0(torch.as_tensor(utt))
+    voiced = f0_cpu > 0
+    f0_rel = ((f0_card - f0_cpu).abs() / f0_cpu.clamp(min=1.0))[voiced]
+    return {"features_max_abs": (feat_card - feat_cpu).abs().max().item(),
+            "f0_voicing_equal": bool(torch.equal(f0_card > 0, voiced)),
+            "f0_frames_voiced": int(voiced.sum()),
+            "f0_frames": int(f0_cpu.numel()),
+            "f0_voiced_max_rel": f0_rel.max().item() if f0_rel.numel()
+            else 0.0}
+
+
+def _ida_card_vs_cpu(torch, inp, cpu, setup) -> tuple[bool, float]:
+    """The I_da entry point on the short input with its own mask, card
+    against CPU: unit streams equal, and the waveforms' largest gap."""
+    short, emb = setup["short"], setup["emb"]
+    on_card = inp(short, 1600, mask_start=3200, emb=emb)
+    on_cpu = cpu(short, 1600, mask_start=3200, emb=emb)
+    codes_equal = all(bool(torch.equal(on_card[k].cpu(), on_cpu[k]))
+                      for k in ("code_clean", "code_inpainted"))
+    diff = max((on_card[k].cpu() - on_cpu[k]).abs().max().item()
+               for k in ("audio_gen", "audio_inpainted"))
+    return codes_equal, diff
+
+
 def phase_ida_main(torch) -> dict:
+    from speech_inpainting_torch.device import full_f32
     from speech_inpainting_torch.ops.f0 import extract_f0
     from speech_inpainting_torch.ops.resblock import (fused_resblock1,
                                                       fused_resblock_step)
@@ -381,9 +590,9 @@ def phase_ida_main(torch) -> dict:
     utts, emb = setup["utts"], setup["emb"]
     inp = _ida_inpainter(torch, setup, torch.float32)
     gcfg = inp.cfg.hifigan
-    # one K2 launch per residual step: 5 stages × 3 blocks × 3 steps, for
+    # two K2 launches per residual step: 5 stages × 3 blocks × 3 steps, for
     # each of the two vocoder calls (clean units, inpainted units)
-    n_launches = 2 * len(gcfg.upsample_rates) * sum(
+    n_launches = 2 * 2 * len(gcfg.upsample_rates) * sum(
         len(d) for d in gcfg.resblock_dilation_sizes)
 
     fused_resblock_step.launches = fused_resblock1.launches = 0
@@ -420,27 +629,15 @@ def phase_ida_main(torch) -> dict:
     # the same modules on the CPU: the tapped features and the f0 track of
     # a whole utterance, then the path on a short input with its own mask
     cpu = _ida_inpainter(torch, setup, torch.float32, device="cpu")
+    with full_f32():
+        gaps = _module_gaps(torch, inp, cpu, utts[0])
+    feat_diff, f0_rel = gaps["features_max_abs"], gaps["f0_voiced_max_rel"]
+    voicing_equal = gaps["f0_voicing_equal"]
     with torch.inference_mode():
-        feat_card = inp.hubert(torch.as_tensor(utts[0], device="cuda")[None],
-                               tap_layer=IDA_TAP)[0].cpu()
         feat_cpu = cpu.hubert(torch.as_tensor(utts[0])[None],
                               tap_layer=IDA_TAP)[0]
-    feat_diff = (feat_card - feat_cpu).abs().max().item()
     margin = _unit_margin(torch, feat_cpu, setup["centroids"])
-    f0_card = extract_f0(torch.as_tensor(utts[0], device="cuda")).cpu()
-    f0_cpu = extract_f0(torch.as_tensor(utts[0]))
-    voicing_equal = bool(torch.equal(f0_card > 0, f0_cpu > 0))
-    voiced = f0_cpu > 0
-    f0_rel = ((f0_card - f0_cpu).abs() / f0_cpu.clamp(min=1.0))[voiced]
-    f0_rel = f0_rel.max().item() if f0_rel.numel() else 0.0
-    short = setup["short"]
-    on_card = inp(short, 1600, mask_start=3200, emb=emb)
-    on_cpu = cpu(short, 1600, mask_start=3200, emb=emb)
-    cpu_codes_equal = all(
-        bool(torch.equal(on_card[k].cpu(), on_cpu[k]))
-        for k in ("code_clean", "code_inpainted"))
-    cpu_diff = max((on_card[k].cpu() - on_cpu[k]).abs().max().item()
-                   for k in ("audio_gen", "audio_inpainted"))
+    cpu_codes_equal, cpu_diff = _ida_card_vs_cpu(torch, inp, cpu, setup)
 
     ok = (launches == n_launches and k1_launches == 0 and shapes == want
           and finite and n_inside > 0 and codes_equal and diff <= MAIN_ATOL
@@ -456,8 +653,8 @@ def phase_ida_main(torch) -> dict:
           "card_vs_cpu_features_max_abs": feat_diff,
           "features_tolerance": HUBERT_ATOL, "unit_margin_min": margin,
           "f0_voicing_equal": voicing_equal,
-          "f0_frames_voiced": int(voiced.sum()),
-          "f0_frames": int(f0_cpu.numel()), "f0_voiced_max_rel": f0_rel,
+          "f0_frames_voiced": gaps["f0_frames_voiced"],
+          "f0_frames": gaps["f0_frames"], "f0_voiced_max_rel": f0_rel,
           "f0_tolerance": F0_RTOL,
           "card_vs_cpu_codes_equal": cpu_codes_equal,
           "card_vs_cpu_max_abs": cpu_diff, "cpu_tolerance": CPU_ATOL,
@@ -484,7 +681,7 @@ def phase_ida_main(torch) -> dict:
                        for k, v in o.items() if k != "rtf"):
                 raise AssertionError(f"{name} I_da path gave non-finite "
                                      "output")
-        with torch.inference_mode():
+        with torch.inference_mode(), full_f32():
             f0n = torch.zeros(1, 1, frames * 4, device="cuda")
             code = torch.zeros(1, frames, dtype=torch.int64, device="cuda")
             feats = torch.zeros(1, gcfg.in_dim, frames, device="cuda")
@@ -508,7 +705,7 @@ def phase_ida_main(torch) -> dict:
         stage_T[gcfg.upsample_initial_channel // 2 ** (i + 1)] = t
     return {"launches": launches, "T": stage_T,
             "kernel_sizes": gcfg.resblock_kernel_sizes,
-            "dilations": gcfg.resblock_dilation_sizes}
+            "dilations": gcfg.resblock_dilation_sizes, "setup": setup}
 
 
 def _step_inputs(rng, C, T, K, torch, dtype):
@@ -533,10 +730,10 @@ def phase_ida_kernel_check(torch, path) -> dict:
     for C, T, K, d in _ida_shapes(path):
         f32 = _step_inputs(rng, C, T, K, torch, torch.float32)
         err = (fused_resblock_step(*f32, d)
-               - resblock_step_reference(*f32, d)).abs().max().item()
+               - pinned(resblock_step_reference, *f32, d)).abs().max().item()
         bf = [a.to(torch.bfloat16) for a in f32]
         got = fused_resblock_step(*bf, d).float()
-        want = resblock_step_reference(*bf, d).float()
+        want = pinned(resblock_step_reference, *bf, d).float()
         rel = ((got - want).abs().max() / want.abs().max()).item()
         torch.cuda.synchronize()
         ok = err <= F32_ATOL and rel <= BF16_RTOL
@@ -563,35 +760,148 @@ def phase_ida_kernel_time(torch, path) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bound_ms": 0.0}
+               "bound_ms": 0.0, "bound_fma_ms": 0.0}
         floors = {"operations": 0.0, "bytes": 0.0}
-        per_C = {}
+        stages = {}
         for C, T, K, d in _ida_shapes(path):
             args = _step_inputs(rng, C, T, K, torch, dtype)
             ms = cuda_ms(lambda: fused_resblock_step(*args, d), 5)
-            plain = cuda_ms(lambda: resblock_step_reference(*args, d), 5)
-            torch.backends.cudnn.benchmark = True
-            lib = cuda_ms(lambda: resblock_step_reference(*args, d), 5,
-                          warmup=2)
-            torch.backends.cudnn.benchmark = False
+            plain_ms = cuda_ms(
+                lambda: pinned(resblock_step_reference, *args, d), 5)
+            lib = library_ms(
+                torch, lambda: resblock_step_reference(*args, d), 5)
             t_ops, t_bytes = resblock_bound_ms(1, C, T, K, 1, name)
-            for key, v in (("ms", ms), ("plain_ms", plain),
-                           ("library_ms", lib),
-                           ("bound_ms", max(t_ops, t_bytes))):
+            row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+                   "bound_ms": max(t_ops, t_bytes)}
+            for key, v in row.items():
                 tot[key] += v
-            per_C[C] = per_C.get(C, 0.0) + ms
+            tot["bound_fma_ms"] += max(resblock_bound_ms(
+                1, C, T, K, 1, name, route=False))
+            _stage_sums(stages, C, row)
             floors["operations"] += t_ops
             floors["bytes"] += t_bytes
             emit({"phase": "ida_kernel_time", "dtype": name, "B": 1, "C": C,
-                  "T": T, "K": K, "dilation": d, "ms": ms, "plain_ms": plain,
-                  "library_ms": lib, "bound_ms": max(t_ops, t_bytes),
+                  "T": T, "K": K, "dilation": d, **row,
                   "bound_by": "operations" if t_ops >= t_bytes
                   else "bytes"})
         tot["bound_by"] = max(floors, key=floors.get)
+        tot["by_C"] = stages
         timed[name] = tot
         emit({"phase": "ida_kernel_time_per_vocoder_call", "dtype": name,
-              "kernel_ms_by_C": per_C, **tot})
+              **tot})
     return timed
+
+
+def _recorded(modules: dict):
+    """Forward hooks that keep, for each named module, the float32 outputs
+    of its calls (on the CPU): numbers read inside an entry point where
+    they are computed. Returns (records, handles)."""
+    rec = {k: [] for k in modules}
+    handles = [m.register_forward_hook(
+        lambda mod, args, out, k=k: rec[k].append(out.detach().float().cpu()))
+        for k, m in modules.items()]
+    return rec, handles
+
+
+def _recorded_gap(rec) -> float:
+    """The largest gap between the card's and the CPU's recorded outputs,
+    call by call."""
+    assert len(rec["card"]) == len(rec["cpu"]) > 0
+    return max((a - b).abs().max().item()
+               for a, b in zip(rec["card"], rec["cpu"]))
+
+
+def phase_default_flags(torch, main_setup, ida_setup) -> dict:
+    """Both entry points under torch's default TF32 flags (cuDNN may run
+    float32 convolutions in TF32; cuBLAS may not): they pin full float32
+    themselves, so the card-vs-CPU gates of `main` and `ida_main` must hold.
+    Gated as well: the HuBERT outputs each entry point computes inside its
+    call (read by forward hooks), card vs CPU at HUBERT_ATOL, which TF32 in
+    HuBERT's conv stack moves past that tolerance (`--unpinned` shows it).
+    The gaps of HuBERT's features and the f0 track called as modules,
+    outside an entry point, under these flags are printed beside them (not
+    gated: that is what the entry points' pinning is for)."""
+    from speech_inpainting_torch.infer.inpaint import InformedInpainter
+    from speech_inpainting_torch.testing import synthetic_batch
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32, matmul.allow_tf32 = True, False   # torch's defaults
+    hooks = []
+    try:
+        cfg, hp, gp, centroids = main_setup
+        card = InformedInpainter(cfg, hp, gp, centroids)
+        cpu = InformedInpainter(cfg, hp, gp, centroids, device="cpu")
+        ea_rec, hooks = _recorded({"card": card.hubert, "cpu": cpu.hubert})
+        s22, s16, spos, slens = synthetic_batch(
+            np.random.default_rng(SEED + 1), 1, 0.5, mask_frames=5)
+        a = card.batch(s22, s16, spos, slens)
+        b = cpu.batch(s22, s16, spos, slens)
+        ea_diff = (a["inpainted"].cpu() - b["inpainted"]).abs().max().item()
+        ea_labels = bool(torch.equal(a["pred_labels"].cpu(),
+                                     b["pred_labels"]))
+        ea_hubert = _recorded_gap(ea_rec)
+        for h in hooks:
+            h.remove()
+        del card, cpu
+        inp = _ida_inpainter(torch, ida_setup, torch.float32)
+        cpu = _ida_inpainter(torch, ida_setup, torch.float32, device="cpu")
+        da_rec, hooks = _recorded({"card": inp.hubert, "cpu": cpu.hubert})
+        codes_equal, da_diff = _ida_card_vs_cpu(torch, inp, cpu, ida_setup)
+        da_feats = _recorded_gap(da_rec)
+        for h in hooks:
+            h.remove()
+        hooks = []
+        unpinned = _module_gaps(torch, inp, cpu, ida_setup["utts"][0])
+        flags = {"cudnn_allow_tf32": cudnn.allow_tf32,
+                 "matmul_allow_tf32": matmul.allow_tf32}
+    finally:
+        for h in hooks:
+            h.remove()
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+    ok = (ea_diff <= CPU_ATOL and ea_labels and ea_hubert <= HUBERT_ATOL
+          and codes_equal and da_diff <= CPU_ATOL and da_feats <= HUBERT_ATOL)
+    out = {"phase": "default_flags", **flags,
+           "ea_card_vs_cpu_max_abs": ea_diff,
+           "ea_pred_labels_equal": ea_labels,
+           "ea_hubert_head_card_vs_cpu_max_abs": ea_hubert,
+           "ida_card_vs_cpu_codes_equal": codes_equal,
+           "ida_card_vs_cpu_max_abs": da_diff,
+           "ida_features_card_vs_cpu_max_abs": da_feats,
+           "cpu_tolerance": CPU_ATOL, "features_tolerance": HUBERT_ATOL,
+           "unpinned_modules": unpinned, "ok": ok}
+    emit(out)
+    if not ok:
+        raise AssertionError("an entry point missed a card-vs-CPU gate "
+                             "under torch's default TF32 flags")
+    return out
+
+
+def control_unpinned(torch) -> int:
+    """The control of `default_flags` (`--unpinned`): the entry points'
+    pinning (`device.full_f32`) is made a no-op before they are imported,
+    and the phase runs alone; it must then come out not ok. Exits 0 when
+    the phase caught the missing pinning, 1 when it did not."""
+    import contextlib
+    from speech_inpainting_torch import device
+
+    @contextlib.contextmanager
+    def no_pinning():
+        yield
+
+    assert not any(m.startswith("speech_inpainting_torch.infer")
+                   for m in sys.modules)
+    device.full_f32 = no_pinning
+    phase_device(torch)
+    phase_build()
+    try:
+        phase_default_flags(torch, _ea_setup(np.random.default_rng(SEED)),
+                            _ida_setup(torch))
+    except AssertionError as err:
+        emit({"control": "unpinned", "default_flags_failed": True,
+              "error": str(err)})
+        return 0
+    emit({"control": "unpinned", "default_flags_failed": False})
+    return 1
 
 
 def main() -> int:
@@ -601,27 +911,39 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 1
     import speech_inpainting_torch  # noqa: F401  (fails outside the repo)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
+    if sys.argv[1:] == ["--unpinned"]:
+        return control_unpinned(torch)
     info = phase_device(torch)
-    phase_build()
+    spills = phase_build()
     errs = phase_kernel_check(torch)
+    edge = phase_edge_check(torch)
     path = phase_main(torch)
     timed = phase_kernel_time(torch, path["T"])
     ida = phase_ida_main(torch)
     ida_errs = phase_ida_kernel_check(torch, ida)
     ida_timed = phase_ida_kernel_time(torch, ida)
+    phase_default_flags(torch, path["setup"], ida["setup"])
+    taken = {"I_ea": _plan_tiles(4, path["T"], path["kernel_sizes"],
+                                 path["dilations"]),
+             "I_da": _plan_tiles(1, ida["T"], ida["kernel_sizes"],
+                                 ida["dilations"])}
+    emit({"phase": "spills", "instantiations": [
+        {**r, "taken_by": [name for name, tiles in taken.items()
+                           if (r["co_tile"], r["t_tile"], r["K"]) in tiles]}
+        for r in spills]})
     t, t2 = timed["bfloat16"], ida_timed["bfloat16"]
     emit({"kernels": [{
         "name": "fused_resblock1", "route": "cuda",
         "source": "speech_inpainting_torch/csrc/resblock1.cu",
-        "replaces": "speech_inpainting_tpu/ops/pallas_resblock.py:264",
+        "replaces": "speech_inpainting_tpu/ops/pallas_resblock.py:266",
         "launches": path["launches"],
-        # the worst over both checks: V1's 12 (C, K) shapes at B=2,
-        # T=2049, and the main path's 12 shapes at B=4
-        "max_abs_err": max(errs["f32_max_abs_err"], timed["float32"]["err"]),
-        "bf16_rel_err": max(errs["bf16_rel_err"], timed["bfloat16"]["err"]),
+        # the worst over the three checks: V1's 12 (C, K) shapes at B=2,
+        # T=2049, the main path's 12 shapes at B=4, and the edge shapes
+        "max_abs_err": max(errs["f32_max_abs_err"], timed["float32"]["err"],
+                           edge["K1"]["f32_max_abs_err"]),
+        "bf16_rel_err": max(errs["bf16_rel_err"], timed["bfloat16"]["err"],
+                            edge["K1"]["bf16_rel_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "timed_at": "the 12 ResBlock1 calls of one V1 forward, B=4 x 4 s, "
@@ -629,13 +951,21 @@ def main() -> int:
         "f32_ms": timed["float32"]["ms"],
         "f32_plain_ms": timed["float32"]["plain_ms"],
         "f32_library_ms": timed["float32"]["library_ms"],
-        "f32_bound_ms": timed["float32"]["bound_ms"]}, {
+        # 3×TF32 on the tensor cores, the route the f32 kernel takes; the
+        # FMA figure (67 TFLOP/s outside them) beside it
+        "f32_bound_ms": timed["float32"]["bound_ms"],
+        "f32_bound_fma_ms": timed["float32"]["bound_fma_ms"],
+        "ms_by_C": {C: v["ms"] for C, v in t["by_C"].items()},
+        "f32_ms_by_C": {C: v["ms"] for C, v in
+                        timed["float32"]["by_C"].items()}}, {
         "name": "fused_resblock_step", "route": "cuda",
         "source": "speech_inpainting_torch/csrc/resblock1.cu",
         "replaces": "speech_inpainting_tpu/ops/pallas_resblock.py:126",
         "launches": ida["launches"],
-        "max_abs_err": ida_errs["f32_max_abs_err"],
-        "bf16_rel_err": ida_errs["bf16_rel_err"],
+        "max_abs_err": max(ida_errs["f32_max_abs_err"],
+                           edge["K2"]["f32_max_abs_err"]),
+        "bf16_rel_err": max(ida_errs["bf16_rel_err"],
+                            edge["K2"]["bf16_rel_err"]),
         "ms": t2["ms"], "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
         "bound_by": t2["bound_by"], "library_ms": t2["library_ms"],
         "timed_at": "the 45 ResBlock1 steps of one I_da vocoder call, B=1, "
@@ -643,7 +973,11 @@ def main() -> int:
         "f32_ms": ida_timed["float32"]["ms"],
         "f32_plain_ms": ida_timed["float32"]["plain_ms"],
         "f32_library_ms": ida_timed["float32"]["library_ms"],
-        "f32_bound_ms": ida_timed["float32"]["bound_ms"]}]})
+        "f32_bound_ms": ida_timed["float32"]["bound_ms"],
+        "f32_bound_fma_ms": ida_timed["float32"]["bound_fma_ms"],
+        "ms_by_C": {C: v["ms"] for C, v in t2["by_C"].items()},
+        "f32_ms_by_C": {C: v["ms"] for C, v in
+                        ida_timed["float32"]["by_C"].items()}}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})
     return 0

@@ -28,7 +28,7 @@ from typing import Dict, Optional
 import torch
 
 from ..convert.from_jax import codegen_from_jax, hubert_model_from_jax
-from ..device import resolve_device
+from ..device import full_f32, resolve_device
 from ..models.codegen import CodeGeneratorConfig
 from ..models.hubert import HubertConfig
 from ..ops.f0 import F0Config, extract_f0, normalize_nonzero
@@ -63,23 +63,26 @@ class IdaInpainter:
         self.centroids = torch.as_tensor(centroids, dtype=torch.float32,
                                          device=self.device)
 
-    def units(self, audio: torch.Tensor) -> torch.Tensor:
+    def _units(self, audio: torch.Tensor) -> torch.Tensor:
         """audio (T,) → k-means units of the tapped layer (frames,)."""
         feats = self.hubert(audio[None], tap_layer=self.tap_layer)[0]
         return assign(feats.float(), self.centroids)
 
     @torch.inference_mode()
+    @full_f32()
     def inpaint(self, audio, mask_start: int, mask_size: int, emb=None,
                 spkr=None) -> Dict[str, torch.Tensor]:
         """audio (T,) float 16 kHz; mask in samples; emb (1, E) d-vector or
         spkr (1, 1) id. Returns audio_gt, audio_mask, audio_gen,
-        audio_inpainted and the unit streams code_clean, code_inpainted."""
+        audio_inpainted and the unit streams code_clean, code_inpainted.
+        Float32 work runs in full float32 whatever the caller's TF32 flags
+        (`device.full_f32`)."""
         audio = torch.as_tensor(audio, dtype=torch.float32,
                                 device=self.device)
         masked = mask_span(audio + 1e-6, mask_start, mask_size)
 
-        code_clean = self.units(audio)
-        code_blind = self.units(masked)
+        code_clean = self._units(audio)
+        code_blind = self._units(masked)
         idx = torch.arange(code_clean.shape[0], device=self.device)
         inside = ((idx >= mask_start // self.code_hop)
                   & (idx < (mask_start + mask_size) // self.code_hop))

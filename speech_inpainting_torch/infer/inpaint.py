@@ -20,7 +20,7 @@ import dataclasses
 import torch
 
 from ..convert.from_jax import generator_from_jax, hubert_from_jax
-from ..device import resolve_device
+from ..device import full_f32, resolve_device
 from ..models.hifigan import HiFiGANConfig
 from ..models.hubert import HubertConfig
 from ..ops.masking import frame_mask, mask_span, mask_wave_frames
@@ -93,10 +93,12 @@ class InformedInpainter:
             dim=-1, keepdim=True).clamp(min=1e-8)
 
     @torch.inference_mode()
+    @full_f32()
     def batch(self, wav22, wav16, mask_pos, mask_len) -> dict:
         """wav22 (B, T22), wav16 (B, T16) float; mask_pos, mask_len (B,) in
         20 ms frames. Returns inpainted (B, T), mel_masked and mel_inpainted
-        (B, 80, F), pred_labels (B, frames)."""
+        (B, 80, F), pred_labels (B, frames). Float32 work runs in full
+        float32 whatever the caller's TF32 flags (`device.full_f32`)."""
         dev = self.device
         wav22 = torch.as_tensor(wav22, dtype=torch.float32, device=dev)
         wav16 = torch.as_tensor(wav16, dtype=torch.float32, device=dev)

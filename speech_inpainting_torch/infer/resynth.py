@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..convert.from_jax import codegen_from_jax
-from ..device import resolve_device
+from ..device import full_f32, resolve_device
 from ..models.codegen import CodeGeneratorConfig
 
 
@@ -38,10 +38,12 @@ class Resynthesizer:
                                                       device=self.device)
 
     @torch.inference_mode()
+    @full_f32()
     def __call__(self, code, f0=None, emb=None, spkr=None):
         """code (B, F) [+ f0 (B, 1, Ff), emb (B, E) | spkr (B,)] → (wav
         (B, T) on the device, rtf): wall seconds per generated audio second,
-        the card synchronised before the clock is read."""
+        the card synchronised before the clock is read. Float32 work runs in
+        full float32 whatever the caller's TF32 flags (`device.full_f32`)."""
         args = (self._as(code, torch.int64), self._as(f0, torch.float32),
                 self._as(emb, torch.float32), self._as(spkr, torch.int64))
         t0 = time.perf_counter()

@@ -1,7 +1,10 @@
 """The port's HiFi-GAN generator (FastGenerator over weights folded by
 convert/from_jax.py) against the flax Generator, on the CPU in float32,
 atol 1e-4: a narrow V1-shaped config, and the trained width-192 proxy whose
-numpy pickle the repo keeps.
+numpy pickle the repo keeps. In bfloat16 (flax `dtype=jnp.bfloat16` against
+the port's `dtype=torch.bfloat16`, whose ResBlock1s run their plain version
+on the CPU) rel 3e-2, bench.py's bf16 tolerance, with weights that carry
+the signal through every stage.
 
 The narrow config's weights are speech_inpainting_torch/testing.py's numpy
 tree, checked here against the names and shapes of the JAX package's init by
@@ -59,6 +62,21 @@ def test_narrow_v1_matches_flax(rng):
     assert (jax.tree_util.tree_map(np.shape, params)
             == jax.tree_util.tree_map(lambda s: s.shape, shapes))
     _compare(NARROW, params, mel)
+
+
+def test_narrow_v1_matches_flax_in_bf16(rng):
+    mel = rng.standard_normal((2, 80, 9)).astype(np.float32)
+    params = testing.generator_tree(HiFiGANConfig(**NARROW), rng, carry=True)
+    gen_j = Generator(JaxConfig(**NARROW, dtype=jnp.bfloat16))
+    want = np.asarray(jax.jit(gen_j.apply)({"params": params},
+                                           jnp.asarray(mel)), np.float32)
+    gen = generator_from_jax(HiFiGANConfig(**NARROW, dtype=torch.bfloat16),
+                             _np_tree(params), device="cpu")
+    assert gen.resblocks[0]["w1"].dtype == torch.bfloat16
+    with torch.no_grad():
+        got = gen(torch.tensor(mel)).float().numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() / np.abs(want).max() <= 3e-2
 
 
 def test_trained_proxy_pickle_matches_flax(rng):

@@ -1,5 +1,7 @@
 """The port stands apart from JAX and from the JAX package, builds its
-kernels by nvcc + ctypes only, and never falls back to the CPU unasked."""
+kernels by nvcc + ctypes only, never falls back to the CPU unasked, and pins
+full float32 (no TF32) inside its entry points without touching the
+caller's flags."""
 import ast
 import re
 import subprocess
@@ -107,3 +109,56 @@ def test_chip_smoke_fails_without_a_card():
     res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0 and res.stdout == ""
+
+
+@pytest.mark.parametrize("caller", [(True, True), (False, True),
+                                    (True, False)])
+def test_full_f32_pins_and_restores_the_tf32_flags(caller):
+    from speech_inpainting_torch.device import full_f32
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    try:
+        cudnn.allow_tf32, matmul.allow_tf32 = caller
+        with full_f32():
+            assert (cudnn.allow_tf32, matmul.allow_tf32) == (False, False)
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == caller
+        with pytest.raises(ZeroDivisionError):
+            with full_f32():
+                1 / 0
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == caller
+
+        @full_f32()
+        def inside():
+            return cudnn.allow_tf32, matmul.allow_tf32
+
+        assert inside() == (False, False)
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == caller
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+def test_entry_points_run_in_full_f32(monkeypatch):
+    """Each entry point runs its body under `full_f32`: the flags seen
+    inside are off though the caller left TF32 on."""
+    from speech_inpainting_torch.infer import ida_inpaint, inpaint, resynth
+    cudnn = torch.backends.cudnn
+    seen = []
+
+    def spy(*args, **kwargs):
+        seen.append(cudnn.allow_tf32)
+        raise RuntimeError("stop")
+
+    monkeypatch.setattr(cudnn, "allow_tf32", True)
+    for cls, method, args in (
+            (inpaint.InformedInpainter, "batch", ([0.0], [0.0], [0], [0])),
+            (ida_inpaint.IdaInpainter, "inpaint", ([0.0], 0, 1)),
+            (resynth.Resynthesizer, "__call__", ([[0]],))):
+        obj = object.__new__(cls)
+        obj.device = torch.device("cpu")
+        monkeypatch.setattr(torch, "as_tensor", spy)
+        with pytest.raises(RuntimeError, match="stop"):
+            getattr(cls, method)(obj, *args)
+        monkeypatch.undo()
+        monkeypatch.setattr(cudnn, "allow_tf32", True)
+        assert cudnn.allow_tf32
+    assert seen == [False, False, False]

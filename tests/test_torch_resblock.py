@@ -3,7 +3,13 @@ ops.resblock) against the TPU kernels in interpret mode and the unfused JAX
 chain, on the CPU in float32, at tests/test_pallas.py's shapes and
 tolerances: atol 3e-5 for a whole block (K1), 2e-5 for one step (K2) and for
 `resblock1_forward`'s chain of steps. The CUDA kernel itself runs only on
-the card: chip_smoke.py holds it against the plain versions there."""
+the card: chip_smoke.py holds it against the plain versions there. Its
+launch plan is Python and is checked here at every shape either path and
+chip_smoke.py give it."""
+import json
+import math
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -105,6 +111,18 @@ def test_resblock1_forward_matches_jax(rng, B, C, T, K):
     np.testing.assert_allclose(got, want, atol=2e-5)
 
 
+def test_check_refuses_weights_the_kernel_cannot_copy(rng):
+    """The kernel copies weight rows in 16-byte pieces: a contiguous weight
+    tensor that starts off a 16-byte boundary is refused, not misread."""
+    x, w, b, _, _ = (torch.tensor(a) for a in _inputs(rng, 1, 16, 32, 3, 1))
+    shifted = torch.empty(w.numel() + 1)[1:].view(w.shape[1:])
+    shifted.copy_(w[0])
+    args = (x, w[0], b[0], w[0], b[0], (16, 16, 3), (16,), 3)
+    resblock._check("f", *args)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        resblock._check("f", x, shifted, *args[2:])
+
+
 def test_wrapper_refuses_devices_without_a_kernel(rng):
     t = [torch.tensor(a, device="meta") for a in _inputs(rng, 1, 8, 16, 3)]
     with pytest.raises(ValueError, match="no kernel"):
@@ -112,3 +130,67 @@ def test_wrapper_refuses_devices_without_a_kernel(rng):
     with pytest.raises(ValueError, match="no kernel"):
         resblock.fused_resblock_step(t[0], t[1][0], t[2][0], t[3][0],
                                      t[4][0], 3)
+
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _stages(config, frames, B):
+    """(B, C, T, K, d) of every residual step of a generator config, with
+    `frames` input frames."""
+    with open(ROOT / "configs" / config) as f:
+        h = json.load(f)
+    T = frames
+    for i, u in enumerate(h["upsample_rates"]):
+        T *= u
+        C = h["upsample_initial_channel"] // 2 ** (i + 1)
+        for K, dils in zip(h["resblock_kernel_sizes"],
+                           h["resblock_dilation_sizes"]):
+            for d in dils:
+                yield B, C, T, K, d
+
+
+PLAN_SHAPES = {
+    # I_ea: V1 at B = 4 × 4 s, 344 mel frames of hop 256
+    "I_ea": list(_stages("hifigan_v1.json", 344, 4)),
+    # I_da: the unit vocoder at B = 1, 196 code frames (a 4 s utterance)
+    "I_da": list(_stages("da_hubert100_lut.json", 196, 1)),
+    # chip_smoke.py's K1 check: V1's 12 (C, K) shapes at B = 2, T = 2049
+    "check": [(2, C, 2049, K, d) for C in (256, 128, 64, 32)
+              for K in (3, 7, 11) for d in (1, 3, 5)],
+    # chip_smoke.py's edge shapes: T shorter than one time tile, T not a
+    # multiple of 8, B = 3, and C = 16 with K = 11, d = 5
+    "edge": [(1, C, T, K, d) for C in (256, 16) for T in (5, 37)
+             for K, d in ((3, 1), (11, 5))]
+    + [(3, C, 1001, K, d) for C in (128, 32, 16)
+       for K, d in ((7, 3), (11, 5))],
+}
+
+
+@pytest.mark.parametrize("path", sorted(PLAN_SHAPES))
+def test_launch_plan_covers_every_shape(path):
+    for B, C, T, K, d in PLAN_SHAPES[path]:
+        plan = resblock._plan(B, C, T, K, d)
+        # channel tiles cover C, time tiles cover T exactly
+        assert C % plan.co_tile == 0, (path, C, plan)
+        n_t = math.ceil(T / plan.t_tile)
+        assert (n_t - 1) * plan.t_tile < T <= n_t * plan.t_tile
+        assert plan.blocks == B * (C // plan.co_tile) * n_t
+        assert max(plan.smem_a, plan.smem_b) <= 232448
+        assert plan.smem_a == resblock._smem(plan.co_tile, plan.t_tile, K, d)
+        assert plan.smem_b == resblock._smem(plan.co_tile, plan.t_tile, K, 1)
+        # one block per SM wherever B·C·T has that much work for some tile
+        most = max(B * (C // co) * math.ceil(T / tt)
+                   for co, tt, _ in resblock.TILES if C % co == 0)
+        assert plan.blocks >= min(132, most), (path, B, C, T, K, d, plan)
+        # the plan the wrapper hands the kernel: 6 ints for the step
+        assert list(resblock._plan_array(B, C, T, K, (d,))) == [
+            plan.co_tile, plan.t_tile, plan.smem_a,
+            plan.co_tile, plan.t_tile, plan.smem_b]
+
+
+@pytest.mark.parametrize("C,K,d", [(24, 3, 1), (16, 4, 1), (16, 3, 0),
+                                   (16, 11, 7), (16, 5, 1), (16, 13, 1)])
+def test_launch_plan_refuses_what_the_kernel_does_not_take(C, K, d):
+    with pytest.raises(ValueError):
+        resblock._plan(1, C, 100, K, d)
