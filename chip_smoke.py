@@ -49,8 +49,36 @@ it stopped); any failure raises and exits non-zero:
                 must hold, and so must HuBERT's outputs inside each entry
                 point (read by forward hooks) at the features' tolerance;
                 the gaps of the modules called outside an entry point under
-                those flags are printed beside them.
-Then the `spills` and `kernels` lines, and last {"ok": true, "device": {...}}.
+                those flags are printed beside them;
+  ea_large      the I_ea path with HuBERT-large (1024 hidden, 24 layers, 16
+                heads) and V1 at full width, B = 4 × 4 s: 72 K1 launches,
+                kernel path vs plain path (f32 waveform atol 1e-4, labels
+                equal), card vs CPU on a short input (HuBERT's head output
+                atol 1e-3, waveform 1e-4, labels equal), bf16 and f32 batch
+                times;
+  istft_engine  `InformedInpainter(generator=ISTFTGenerator)` at the
+                iSTFTNet C8C8I geometry, width 512, with HuBERT-base: 36 K1
+                launches, the same checks, and its vocoder and batch times
+                beside V1's in turns, bf16 and f32;
+  artifacts     `hifi_masked` and `batch_expected`, card vs CPU (atol 1e-4);
+  serving       bench.py's flagship (HuBERT-base + V1) in bf16, eight numpy
+                batches of B = 64 through a synchronised loop and through
+                `PipelinedRunner` at depth 1 and 4 (outputs equal to the
+                loop's, audio-s/s), one batch at B = 256 (time, peak
+                memory), and K1 vs its plain version at the tiles those
+                plans take that no earlier check reached;
+  longform      `LongFormInpainter` on a 60 s recording with 5 masks (two
+                merged), window 4 s, batch 8, depth 4: untouched outside the
+                pasted spans, equal to direct `batch` calls on its windows
+                (atol 1e-4), card vs CPU (atol 1e-4);
+  cli           `predict_ea.main` on the card on a wav, a HuBERT-large
+                `CustomModel` state dict, a V1 `g_*` file and a .npy
+                codebook written to a temporary directory: every artifact
+                written (mel PNGs where matplotlib is installed), inpainted
+                wav within 1 int16 step of a direct call, `--long-form` with
+                two masks.
+Then the `spills` and `kernels` lines (K1's launches on each path), and last
+{"ok": true, "device": {...}}.
 
 `--unpinned` runs only `device`, `build` and `default_flags`, with the
 entry points' pinning made a no-op: the phase must then fail (exit 0 when
@@ -876,6 +904,507 @@ def phase_default_flags(torch, main_setup, ida_setup) -> dict:
     return out
 
 
+# ------------------------------------------------- the I_ea predict path
+
+def _short_inputs(seed=SEED + 1):
+    """The card-vs-CPU input: one 0.5 s utterance with a 5-frame mask."""
+    from speech_inpainting_torch.testing import synthetic_batch
+    return synthetic_batch(np.random.default_rng(seed), 1, 0.5,
+                           mask_frames=5)
+
+
+def _finite(torch, out) -> bool:
+    return all(bool(torch.isfinite(v.float()).all()) for v in out.values())
+
+
+def _timed_batches(torch, inp, dev, iters=5) -> float:
+    """Seconds per `inp.batch(*dev)`, host clock, the card synchronised
+    before and after `iters` back-to-back batches."""
+    inp.batch(*dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        inp.batch(*dev)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters
+
+
+def _path_check(torch, name, inp, cpu, batch, n_launches) -> dict:
+    """One I_ea configuration through its entry point: K1 launches on the
+    main batch, shapes and finiteness, kernel path vs plain path (f32
+    waveform atol MAIN_ATOL, labels equal), and card vs CPU on the short
+    input (HuBERT's head output inside the entry point at HUBERT_ATOL,
+    waveform at CPU_ATOL, labels equal)."""
+    from speech_inpainting_torch.ops.resblock import fused_resblock1
+    gen = inp.generator
+    w22, w16, pos, lens = batch
+    fused_resblock1.launches = 0
+    out = inp.batch(w22, w16, pos, lens)
+    torch.cuda.synchronize()
+    launches = fused_resblock1.launches
+    B = w22.shape[0]
+    T_out = (1 + (w22.shape[1] + 2 * 312 - 1024) // 441) * 441 // 256 * 256
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    want = {"inpainted": (B, T_out), "mel_masked": (B, 80, 200),
+            "mel_inpainted": (B, 80, 200), "pred_labels": (B, 199)}
+    finite = _finite(torch, out)
+    gen.use_kernel = False
+    plain = inp.batch(w22, w16, pos, lens)
+    gen.use_kernel = True
+    diff = (out["inpainted"] - plain["inpainted"]).abs().max().item()
+    labels = bool(torch.equal(out["pred_labels"], plain["pred_labels"]))
+    rec, hooks = _recorded({"card": inp.hubert, "cpu": cpu.hubert})
+    try:
+        s = _short_inputs()
+        a, b = inp.batch(*s), cpu.batch(*s)
+        head = _recorded_gap(rec)
+    finally:
+        for h in hooks:
+            h.remove()
+    cpu_diff = (a["inpainted"].cpu() - b["inpainted"]).abs().max().item()
+    cpu_labels = bool(torch.equal(a["pred_labels"].cpu(), b["pred_labels"]))
+    ok = (launches == n_launches and shapes == want and finite
+          and diff <= MAIN_ATOL and labels and head <= HUBERT_ATOL
+          and cpu_diff <= CPU_ATOL and cpu_labels)
+    row = {"phase": name, "B": B, "launches": launches,
+           "expected_launches": n_launches, "shapes": shapes,
+           "finite": finite, "kernel_vs_plain_max_abs": diff,
+           "kernel_vs_plain_labels_equal": labels, "tolerance": MAIN_ATOL,
+           "card_vs_cpu_head_max_abs": head, "head_tolerance": HUBERT_ATOL,
+           "card_vs_cpu_max_abs": cpu_diff, "cpu_tolerance": CPU_ATOL,
+           "card_vs_cpu_labels_equal": cpu_labels, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"{name} path check failed")
+    return row
+
+
+def phase_ea_large(torch) -> dict:
+    """The I_ea path with HuBERT-large (1024 hidden, 24 layers, 16 heads,
+    the reference's I_ea encoder) and V1 at full width, B = 4 × 4 s:
+    `_path_check`, then bf16 and f32 batch times and the parts'."""
+    from speech_inpainting_torch.device import full_f32
+    from speech_inpainting_torch.infer.inpaint import (InformedInpainter,
+                                                       InpainterConfig)
+    from speech_inpainting_torch.models.hifigan import HiFiGANConfig
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    from speech_inpainting_torch.testing import (generator_tree, hubert_tree,
+                                                 synthetic_batch)
+    rng = np.random.default_rng(SEED + 10)
+    hcfg, gcfg = HubertConfig.large(), HiFiGANConfig()
+    hp, gp = hubert_tree(hcfg, 80, rng), generator_tree(gcfg, rng)
+    centroids = rng.standard_normal((100, 80)).astype(np.float32)
+    cfg = InpainterConfig(hcfg, gcfg)
+    batch = synthetic_batch(rng, 4, 4.0)
+    inp = InformedInpainter(cfg, hp, gp, centroids)
+    cpu = InformedInpainter(cfg, hp, gp, centroids, device="cpu")
+    check = _path_check(torch, "ea_large_f32", inp, cpu, batch, 72)
+    del cpu
+    dev = [torch.as_tensor(a, device="cuda") for a in batch]
+    audio_s = 4 * check["shapes"]["inpainted"][1] / 22050.0
+    f32_s = _timed_batches(torch, inp, dev)
+    inp16 = InformedInpainter(InpainterConfig(
+        HubertConfig.large(dtype=torch.bfloat16),
+        HiFiGANConfig(dtype=torch.bfloat16)), hp, gp, centroids)
+    if not _finite(torch, inp16.batch(*dev)):
+        raise AssertionError("bf16 HuBERT-large path gave non-finite output")
+    bf16_s = _timed_batches(torch, inp16, dev)
+    with torch.inference_mode(), full_f32():
+        hub_ms = cuda_ms(lambda: inp16.hubert(dev[1]), 3)
+        hub32_ms = cuda_ms(lambda: inp.hubert(dev[1]), 3)
+    emit({"phase": "ea_large_throughput", "B": 4, "audio_seconds": audio_s,
+          "f32_batch_seconds": f32_s,
+          "f32_audio_seconds_per_second": audio_s / f32_s,
+          "bf16_batch_seconds": bf16_s,
+          "bf16_audio_seconds_per_second": audio_s / bf16_s,
+          "bf16_hubert_ms": hub_ms, "f32_hubert_ms": hub32_ms})
+    del inp16
+    return {"launches": check["launches"], "inp": inp, "cfg": cfg, "hp": hp,
+            "gp": gp, "centroids": centroids}
+
+
+def phase_istft_engine(torch, main_setup) -> dict:
+    """`InformedInpainter(generator=ISTFTGenerator)` at the C8C8I geometry,
+    width 512 (the trunk is V1's first two stages: 6 ResBlock1s, 36 K1
+    launches), with the main path's HuBERT-base: `_path_check`, then its
+    vocoder and batch times beside V1's, bf16 and f32, taken in turns."""
+    from speech_inpainting_torch.convert.from_jax import (
+        istft_generator_from_jax)
+    from speech_inpainting_torch.device import full_f32
+    from speech_inpainting_torch.infer.inpaint import (InformedInpainter,
+                                                       InpainterConfig)
+    from speech_inpainting_torch.models.hifigan import HiFiGANConfig
+    from speech_inpainting_torch.models.hifigan_istft import (
+        ISTFTGeneratorConfig)
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    from speech_inpainting_torch.testing import (generator_tree,
+                                                 synthetic_batch)
+    cfg, hp, gp, centroids = main_setup
+    rng = np.random.default_rng(SEED + 20)
+    icfg = ISTFTGeneratorConfig()
+    tree = generator_tree(icfg, rng)
+    batch = synthetic_batch(rng, 4, 4.0)
+
+    def engines(dtype):
+        hub = HubertConfig.base(dtype=dtype)
+        c = InpainterConfig(hub, HiFiGANConfig(dtype=dtype))
+        ig = istft_generator_from_jax(
+            dataclasses.replace(icfg, dtype=dtype), tree)
+        return (InformedInpainter(c, hp, None, centroids, generator=ig),
+                InformedInpainter(c, hp, gp, centroids))
+
+    f32 = engines(torch.float32)
+    cpu = InformedInpainter(cfg, hp, None, centroids, device="cpu",
+                            generator=istft_generator_from_jax(
+                                icfg, tree, device="cpu"))
+    check = _path_check(torch, "istft_engine_f32", f32[0], cpu, batch, 36)
+    del cpu
+    dev = [torch.as_tensor(a, device="cuda") for a in batch]
+    audio_s = 4 * check["shapes"]["inpainted"][1] / 22050.0
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        inp, v1 = f32 if dtype == torch.float32 else engines(dtype)
+        with torch.inference_mode(), full_f32():
+            mel = torch.zeros(4, 80, check["shapes"]["inpainted"][1] // 256,
+                              device="cuda")
+            gen = [cuda_ms(lambda: g.generator(mel), 3)
+                   for g in (inp, v1, v1, inp)]
+        batches = [_timed_batches(torch, e, dev) for e in (inp, v1, v1, inp)]
+        times[name] = {
+            "istft_vocoder_ms": (gen[0] + gen[3]) / 2,
+            "v1_vocoder_ms": (gen[1] + gen[2]) / 2,
+            "istft_batch_seconds": (batches[0] + batches[3]) / 2,
+            "v1_batch_seconds": (batches[1] + batches[2]) / 2}
+        times[name]["istft_audio_seconds_per_second"] = (
+            audio_s / times[name]["istft_batch_seconds"])
+        times[name]["v1_audio_seconds_per_second"] = (
+            audio_s / times[name]["v1_batch_seconds"])
+        emit({"phase": "istft_engine_throughput", "dtype": name, "B": 4,
+              "audio_seconds": audio_s, **times[name],
+              "order": "istft, v1, v1, istft (means of the two)"})
+    return {"launches": check["launches"], "times": times}
+
+
+def phase_artifacts(torch, main_setup) -> dict:
+    """The reference's other artifacts on the card against the CPU, f32,
+    atol CPU_ATOL: `hifi_masked` (one utterance) and `batch_expected` (B =
+    2, random true labels)."""
+    from speech_inpainting_torch.infer.inpaint import InformedInpainter
+    from speech_inpainting_torch.testing import synthetic_batch
+    cfg, hp, gp, centroids = main_setup
+    card = InformedInpainter(cfg, hp, gp, centroids)
+    cpu = InformedInpainter(cfg, hp, gp, centroids, device="cpu")
+    rng = np.random.default_rng(SEED + 30)
+    w22, _, pos, lens = synthetic_batch(rng, 2, 0.5, mask_frames=5)
+    labels = rng.integers(0, len(centroids), (2, w22.shape[1] // 441))
+    a = card.hifi_masked(w22[0], int(pos[0]), int(lens[0])).cpu()
+    b = cpu.hifi_masked(w22[0], int(pos[0]), int(lens[0]))
+    hifi = (a - b).abs().max().item()
+    a = card.batch_expected(w22, labels, pos, lens)
+    b = cpu.batch_expected(w22, labels, pos, lens)
+    exp = max((a[k].cpu() - b[k]).abs().max().item() for k in a)
+    shapes = {k: tuple(v.shape) for k, v in a.items()}
+    ok = hifi <= CPU_ATOL and exp <= CPU_ATOL and _finite(torch, a)
+    emit({"phase": "artifacts", "hifi_masked_card_vs_cpu_max_abs": hifi,
+          "batch_expected_card_vs_cpu_max_abs": exp, "shapes": shapes,
+          "tolerance": CPU_ATOL, "ok": ok})
+    if not ok:
+        raise AssertionError("artifacts: card and CPU disagree")
+    return {"hifi_masked": hifi, "batch_expected": exp}
+
+
+SERVING_B = 64
+SERVING_BATCHES = 8
+
+
+def _serving_batches(rng, B, n):
+    """n numpy batches of B 4 s utterances: one synthetic batch, shifted by
+    k frames (at both rates) and with masks moved for batch k."""
+    from speech_inpainting_torch.testing import synthetic_batch
+    w22, w16, pos, lens = synthetic_batch(rng, B, 4.0)
+    return [(np.roll(w22, 441 * k, axis=1), np.roll(w16, 320 * k, axis=1),
+             (pos + 7 * k) % 180 + 1, lens) for k in range(n)]
+
+
+def _serving_kernel_checks(torch, covered) -> list:
+    """K1 against its plain version at every (C, co tile, t tile, K) that
+    the serving batches' plans take and no earlier check reached (f32 atol,
+    bf16 rel), at the first serving batch size that takes it; and at
+    B = 256's largest stage (C = 32, T = 88 064, K = 11, bf16)."""
+    from speech_inpainting_torch.ops.resblock import (_plan, fused_resblock1,
+                                                      resblock1_reference)
+    todo = []
+    for B in (SERVING_B, 256):
+        for C, T in _v1_stage_T(344).items():
+            for K in (3, 7, 11):
+                tiles = {(C, _plan(B, C, T, K, d)[:2], K) for d in (1, 3, 5)}
+                if not tiles <= covered:
+                    todo.append((B, C, T, K, torch.float32))
+                    covered |= tiles
+    todo.append((256, 32, 88064, 11, torch.bfloat16))
+    rows = []
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 40)
+    for B, C, T, K, dtype in todo:
+        # drawn on the card: B = 256's stage has 7.2e8 elements
+        scale = 0.5 / math.sqrt(C * K)
+        args = [torch.randn(shape, generator=gen, device="cuda") * f
+                for shape, f in (((B, C, T), 1.0), ((3, C, C, K), scale),
+                                 ((3, C), 0.1), ((3, C, C, K), scale),
+                                 ((3, C), 0.1))]
+        args = [a.to(dtype) for a in args]
+        got = fused_resblock1(*args, (1, 3, 5)).float()
+        want = pinned(resblock1_reference, *args, (1, 3, 5)).float()
+        err, tol = (got - want).abs().max().item(), F32_ATOL
+        if dtype == torch.bfloat16:
+            err, tol = err / want.abs().max().item(), BF16_RTOL
+        del got, want, args
+        row = {"B": B, "C": C, "T": T, "K": K,
+               "dtype": str(dtype).split(".")[-1], "err": err,
+               "tolerance": tol, "ok": err <= tol}
+        emit({"phase": "serving_kernel_check", **row})
+        if not row["ok"]:
+            raise AssertionError(f"fused_resblock1 disagrees at the serving "
+                                 f"shape {row}")
+        rows.append(row)
+    return rows
+
+
+def _covered_tiles(path) -> set:
+    """(C, (co tile, t tile), K) of every K1 launch that the earlier checks
+    hold against the plain version: `kernel_check`, the main path's shapes
+    (`kernel_time`) and the edge shapes."""
+    from speech_inpainting_torch.ops.resblock import _plan
+    shapes = [(2, C, 2049, K) for C in (256, 128, 64, 32) for K in (3, 7, 11)]
+    shapes += [(4, C, T, K) for C, T in path["T"].items()
+               for K in path["kernel_sizes"]]
+    shapes += EDGE_SHAPES
+    return {(C, _plan(B, C, T, K, d)[:2], K) for B, C, T, K in shapes
+            for d in (1, 3, 5)}
+
+
+def _v1_stage_T(frames) -> dict:
+    """V1's ResBlock1 time length per stage C for `frames` mel frames."""
+    out, t = {}, frames
+    for i, u in enumerate((8, 8, 2, 2)):
+        t *= u
+        out[256 // 2 ** i] = t
+    return out
+
+
+def phase_serving(torch, main_setup, covered) -> dict:
+    """`bench.py`'s flagship (HuBERT-base + V1) in bf16 at B = 64: eight
+    numpy batches through a per-batch synchronised loop, then through
+    `PipelinedRunner` at depth 1 and at depth 4, twice each in turns (d1,
+    d4, d4, d1; d4 once more with the results brought to pinned host
+    memory): every output equal to the loop's; audio-s/s of each. Then one
+    batch at B = 256 (bench.py:122): finite, its time and peak memory; and
+    K1 against its plain version at the plans' new tiles."""
+    from speech_inpainting_torch.infer.inpaint import (InformedInpainter,
+                                                       InpainterConfig)
+    from speech_inpainting_torch.infer.serving import PipelinedRunner, to_host
+    from speech_inpainting_torch.models.hifigan import HiFiGANConfig
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    from speech_inpainting_torch.ops.resblock import fused_resblock1
+    _, hp, gp, centroids = main_setup
+    inp = InformedInpainter(InpainterConfig(
+        HubertConfig.base(dtype=torch.bfloat16),
+        HiFiGANConfig(dtype=torch.bfloat16)), hp, gp, centroids)
+    batches = _serving_batches(np.random.default_rng(SEED + 50), SERVING_B,
+                               SERVING_BATCHES)
+    audio_s = SERVING_B * 88064 / 22050.0      # per batch
+    inp.batch(*batches[0])                     # warm-up at this shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = []
+    for b in batches:
+        out = inp.batch(*b)
+        torch.cuda.synchronize()
+        want.append(out)
+    loop_s = time.perf_counter() - t0
+    runs, equal, launches = [], True, {}
+    for depth, fetch in ((1, None), (4, None), (4, None), (1, None),
+                         (4, to_host)):
+        fused_resblock1.launches = 0
+        runner = PipelinedRunner(inp.batch, depth=depth, fetch=fetch)
+        got = list(runner.map(batches))
+        rate = runner.throughput(audio_s)
+        name = f"depth{depth}" + ("_to_host" if fetch else "")
+        launches[name] = fused_resblock1.launches
+        same = len(got) == len(want) and all(
+            torch.equal(g[k].to(w[k].device), w[k])
+            for g, w in zip(got, want) for k in w)
+        equal = equal and same
+        runs.append({"run": name, "audio_seconds_per_second": rate,
+                     "seconds": runner.elapsed, "equal_to_loop": same})
+        emit({"phase": "serving_run", "B": SERVING_B,
+              "batches": SERVING_BATCHES, **runs[-1],
+              "k1_launches": launches[name]})
+        del got
+    rates = {n: [r["audio_seconds_per_second"] for r in runs
+                 if r["run"] == n] for n in ("depth1", "depth4")}
+    del want
+    # one batch at bench.py's B = 256: the B = 64 batch four times over
+    big = [np.concatenate([a] * 4) for a in batches[0]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = inp.batch(*big)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = inp.batch(*big)
+    torch.cuda.synchronize()
+    b256_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    b256_ok = _finite(torch, out) and tuple(out["inpainted"].shape) == (
+        256, 88064)
+    del out
+    checks = _serving_kernel_checks(torch, covered)
+    ok = equal and b256_ok and all(
+        v == 72 * SERVING_BATCHES for v in launches.values())
+    row = {"phase": "serving", "B": SERVING_B, "batches": SERVING_BATCHES,
+           "audio_seconds_per_batch": audio_s,
+           "sync_loop_audio_seconds_per_second":
+               SERVING_BATCHES * audio_s / loop_s,
+           "depth1_audio_seconds_per_second": rates["depth1"],
+           "depth4_audio_seconds_per_second": rates["depth4"],
+           "outputs_equal_to_loop": equal, "k1_launches": launches,
+           "b256_batch_seconds": b256_s,
+           "b256_audio_seconds_per_second": 256 * 88064 / 22050.0 / b256_s,
+           "b256_peak_memory_bytes": peak, "b256_finite": b256_ok,
+           "kernel_checks": len(checks), "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("serving check failed")
+    return {"launches": launches["depth4"], "row": row}
+
+
+def phase_longform(torch, main_setup) -> dict:
+    """`LongFormInpainter` over a 60 s synthetic recording with 5 masks of
+    10 frames, two of them 2 frames apart (merged into one window), window
+    4 s, batch 8, depth 4, f32: output bit-equal to the input outside the
+    pasted spans, equal (atol MAIN_ATOL) to the same windows run one
+    direct `batch` call each and pasted alike, and the card against the
+    CPU (atol CPU_ATOL)."""
+    from speech_inpainting_torch.infer.inpaint import InformedInpainter
+    from speech_inpainting_torch.infer.longform import (LongFormConfig,
+                                                        LongFormInpainter)
+    from speech_inpainting_torch.ops.resblock import fused_resblock1
+    from speech_inpainting_torch.testing import synthetic_batch
+    cfg, hp, gp, centroids = main_setup
+    w22, w16, _, _ = synthetic_batch(np.random.default_rng(SEED + 60), 1,
+                                     60.0)
+    w22, w16 = w22[0], w16[0]
+    pos, lens = [400, 1200, 1212, 2000, 2800], [10] * 5
+    lcfg = LongFormConfig(window_frames=200, batch=8, depth=4)
+    inp = InformedInpainter(cfg, hp, gp, centroids)
+    lf = LongFormInpainter(inp, lcfg)
+    lf(w22, w16, pos, lens)                    # warm-up at this shape
+    fused_resblock1.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, spans = lf(w22, w16, pos, lens)
+    seconds = time.perf_counter() - t0
+    launches = fused_resblock1.launches
+    outside = np.ones(len(out), bool)
+    for a, b in spans:
+        outside[a:b] = False
+    untouched = bool(np.array_equal(out[outside], w22[outside]))
+    job = lf.plan(w22, w16, pos, lens)
+    for i0 in job.starts:
+        args, gains = job.window_batch(i0)
+        job.paste(inp.batch(*args)["inpainted"].cpu().numpy(), i0, gains)
+    direct = float(np.abs(out - job.out).max())
+    on_cpu, cpu_spans = LongFormInpainter(InformedInpainter(
+        cfg, hp, gp, centroids, device="cpu"), lcfg)(w22, w16, pos, lens)
+    cpu_diff = float(np.abs(out - on_cpu).max())
+    ok = (len(spans) == 4 and launches == 72 and untouched
+          and direct <= MAIN_ATOL and cpu_spans == spans
+          and cpu_diff <= CPU_ATOL and not np.array_equal(out, w22))
+    emit({"phase": "longform", "seconds_of_audio": len(w22) / 22050.0,
+          "masks": len(pos), "windows": len(spans), "launches": launches,
+          "wall_seconds": seconds, "untouched_outside_spans": untouched,
+          "vs_direct_batch_max_abs": direct, "tolerance": MAIN_ATOL,
+          "card_vs_cpu_max_abs": cpu_diff, "cpu_tolerance": CPU_ATOL,
+          "ok": ok})
+    if not ok:
+        raise AssertionError("long-form check failed")
+    return {"launches": launches, "seconds": seconds}
+
+
+def phase_cli(torch, large) -> dict:
+    """`predict_ea.main` on the card, as a user runs it, on files written
+    to a temporary directory: a synthetic 4 s wav, the HuBERT-large
+    `CustomModel` state dict and the V1 `g_*` file of `ea_large`'s weights
+    (the reference's layouts, from testing.py), its codebook as .npy and
+    true labels. Every artifact is written (the mel PNGs where matplotlib
+    is installed); inpainted.wav equals `ea_large`'s inpainter on the same
+    weights and wav to 1 int16 step; `--long-form` with two masks."""
+    import importlib.util
+    import tempfile
+    from scipy.io import wavfile
+    from speech_inpainting_torch.cli import predict_ea
+    from speech_inpainting_torch.data.audio import load_wav, save_wav
+    from speech_inpainting_torch.ops.resblock import fused_resblock1
+    from speech_inpainting_torch.testing import (custom_model_state_dict,
+                                                 generator_state_dict,
+                                                 synthetic_batch)
+    figures = importlib.util.find_spec("matplotlib") is not None
+    rng = np.random.default_rng(SEED + 70)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        w22 = synthetic_batch(rng, 1, 4.0)[0][0]
+        wavfile.write(d / "utt.wav", 22050, (w22 * 32767).astype(np.int16))
+        torch.save(custom_model_state_dict(large["hp"], large["cfg"].hubert),
+                   d / "best.pt")
+        torch.save({"generator": generator_state_dict(
+            large["gp"], large["cfg"].hifigan)}, d / "g_00000001")
+        np.save(d / "km.npy", large["centroids"])
+        np.save(d / "labels.npy", rng.integers(0, 100, 200))
+        common = ["--wav", str(d / "utt.wav"), "--hubert-checkpoint",
+                  str(d / "best.pt"), "--hubert-type", "large",
+                  "--hifigan-checkpoint", str(d / "g_00000001"),
+                  "--kmeans", str(d / "km.npy"), "--device", "cuda"]
+        fused_resblock1.launches = 0
+        t0 = time.perf_counter()
+        predict_ea.main(common + ["--start-sec", "1.5", "--end-sec", "1.7",
+                                  "--labels", str(d / "labels.npy"),
+                                  "--out", str(d / "one")], figures=figures)
+        seconds = time.perf_counter() - t0
+        launches = fused_resblock1.launches
+        art = d / "one" / "utt"
+        names = ["orig.wav", "masked.wav", "hifi_masked.wav",
+                 "inpainted.wav", "expected_inpaint.wav"]
+        if figures:
+            names += ["masked.png", "inpainted.png", "expected.png"]
+        written = sorted(p.name for p in art.iterdir())
+        # the same weights and wav through the inpainter directly
+        wav22, _ = load_wav(d / "utt.wav", 22050)
+        wav16, _ = load_wav(d / "utt.wav", 16000)
+        direct = large["inp"](wav22, wav16, 75, 10)["inpainted"]
+        save_wav(d / "direct.wav", direct.cpu().numpy(), 22050)
+        _, a = wavfile.read(art / "inpainted.wav")
+        _, b = wavfile.read(d / "direct.wav")
+        steps = int(np.abs(a.astype(np.int32) - b).max())
+        predict_ea.main(common + ["--long-form", "--mask", "0.5-0.7",
+                                  "--mask", "2.5-2.7", "--out",
+                                  str(d / "long")], figures=figures)
+        long_dir = d / "long" / "utt"
+        spans = json.loads((long_dir / "spans.json").read_text())
+        long_ok = all((long_dir / n).exists() for n in
+                      ("orig.wav", "masked.wav", "inpainted.wav")) and len(
+            spans["pasted_sample_spans"]) == 2
+    ok = (set(names) <= set(written) and steps <= 1 and long_ok
+          and launches == 3 * 72)
+    emit({"phase": "cli", "figures": figures, "written": written,
+          "inpainted_vs_direct_int16_steps": steps, "launches": launches,
+          "expected_launches": 3 * 72, "seconds": seconds,
+          "long_form_spans": spans["pasted_sample_spans"], "ok": ok})
+    if not ok:
+        raise AssertionError("predict_ea CLI check failed")
+    return {"launches": launches}
+
+
 def control_unpinned(torch) -> int:
     """The control of `default_flags` (`--unpinned`): the entry points'
     pinning (`device.full_f32`) is made a no-op before they are imported,
@@ -924,6 +1453,15 @@ def main() -> int:
     ida_errs = phase_ida_kernel_check(torch, ida)
     ida_timed = phase_ida_kernel_time(torch, ida)
     phase_default_flags(torch, path["setup"], ida["setup"])
+    covered = _covered_tiles(path)
+    large = phase_ea_large(torch)
+    istft = phase_istft_engine(torch, path["setup"])
+    phase_artifacts(torch, path["setup"])
+    serving = phase_serving(torch, path["setup"], covered)
+    longform = phase_longform(torch, path["setup"])
+    cli = phase_cli(torch, large)
+    large_launches = large["launches"]
+    del large
     taken = {"I_ea": _plan_tiles(4, path["T"], path["kernel_sizes"],
                                  path["dilations"]),
              "I_da": _plan_tiles(1, ida["T"], ida["kernel_sizes"],
@@ -938,6 +1476,17 @@ def main() -> int:
         "source": "speech_inpainting_torch/csrc/resblock1.cu",
         "replaces": "speech_inpainting_tpu/ops/pallas_resblock.py:266",
         "launches": path["launches"],
+        # K1's launches on each path's run (counts set to 0 just before):
+        # one V1 forward (base, large), one iSTFT-engine forward, the eight
+        # B = 64 serving batches at depth 4, the long-form recording's one
+        # batch of 8 windows, the CLI's three vocoder calls
+        "launches_by_path": {
+            "I_ea_hubert_base_v1": path["launches"],
+            "I_ea_hubert_large_v1": large_launches,
+            "istft_engine": istft["launches"],
+            "serving_b64_depth4_8_batches": serving["launches"],
+            "longform_60s": longform["launches"],
+            "cli_predict_ea": cli["launches"]},
         # the worst over the three checks: V1's 12 (C, K) shapes at B=2,
         # T=2049, the main path's 12 shapes at B=4, and the edge shapes
         "max_abs_err": max(errs["f32_max_abs_err"], timed["float32"]["err"],

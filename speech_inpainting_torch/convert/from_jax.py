@@ -21,6 +21,7 @@ from ..device import resolve_device
 from ..models.codegen import CodeGenerator, CodeGeneratorConfig
 from ..models.hifigan import Generator, HiFiGANConfig
 from ..models.hifigan_fast import FastGenerator
+from ..models.hifigan_istft import ISTFTGenerator, ISTFTGeneratorConfig
 from ..models.hubert import EncoderWithHead, HubertConfig, HubertModel
 from ..ops.conv import weight_norm_kernel
 
@@ -67,6 +68,18 @@ def generator_from_jax(cfg: HiFiGANConfig, params: dict,
     return gen.to(device=device, dtype=cfg.dtype)
 
 
+@torch.no_grad()
+def istft_generator_from_jax(cfg: ISTFTGeneratorConfig, params: dict,
+                             device=None) -> ISTFTGenerator:
+    """`ISTFTGenerator` tree (the `Generator` names over the trunk's stages,
+    conv_post with n_fft + 2 outputs) → ISTFTGenerator (trunk ResBlock1s in
+    K1) in cfg.dtype on `device`."""
+    device = resolve_device(device)
+    gen = ISTFTGenerator(cfg)
+    _load_generator(gen, params)
+    return gen.to(device=device, dtype=cfg.dtype)
+
+
 def _load_dense(dense: nn.Linear, p: dict) -> None:
     dense.weight.copy_(_t(p["kernel"]).t())
     dense.bias.copy_(_t(p["bias"]))
@@ -78,12 +91,15 @@ def _load_norm(norm: nn.Module, p: dict) -> None:
 
 
 def _load_hubert(enc: HubertModel, hp: dict, dtype: torch.dtype) -> None:
-    """`HubertModel` tree → `enc`; its convs and dense layers then in
-    `dtype`, its norms in float32."""
+    """`HubertModel` tree (base or large) → `enc`; its convs and dense
+    layers then in `dtype`, its norms in float32."""
     fe = hp["feature_extractor"]
     for i, conv in enumerate(enc.feature_extractor.convs):
         conv.weight.copy_(_t(fe[f"conv_{i}_w"]))
-    _load_norm(enc.feature_extractor.norm_0, fe["norm_0"])
+        if conv.bias is not None:
+            conv.bias.copy_(_t(fe[f"conv_{i}_b"]))
+    for name, norm in enc.feature_extractor.norms.items():
+        _load_norm(norm, fe[name])
     _load_norm(enc.fp_layer_norm, hp["fp_layer_norm"])
     _load_dense(enc.fp_projection, hp["fp_projection"])
     pc = hp["pos_conv_embed"]

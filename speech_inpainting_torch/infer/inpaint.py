@@ -12,6 +12,10 @@ Conventions (those of speech_inpainting_tpu/infer/inpaint.py):
     over mel frames [pos, pos+len) of the hop-441 mel, whose frame grid is
     HuBERT's 20 ms grid;
   - linear 441 → 256 regrid (extend_mel) before the generator.
+
+Beside the main path, the reference's other artifacts: `batch_expected`
+(the true centroid frames spliced in, the decoder-only upper bound) and
+`hifi_masked` (the masked mel vocoded as it is).
 """
 from __future__ import annotations
 
@@ -68,29 +72,68 @@ def _splice(mel, frames_btd, mask_pos, mask_len):
     return torch.where(m[:, None, :], frames_btd.transpose(1, 2), mel)
 
 
+def _stage(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """x (an array, a list or a tensor) as a `dtype` tensor on `device`. A
+    host array bound for the card goes through pinned memory by a
+    non-blocking copy on the current stream, so the caller is not held
+    until the card has taken it (a pageable copy would wait for the
+    stream)."""
+    t = torch.as_tensor(x, dtype=dtype)
+    if device.type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
 class InformedInpainter:
-    """Informed inpainting with HuBERT-base + head and a HiFi-GAN V1
-    generator whose ResBlock1s run in the fused CUDA kernel on the card.
+    """Informed inpainting with HuBERT + head and a HiFi-GAN vocoder whose
+    ResBlock1s run in the fused CUDA kernel (K1) on the card.
 
     hubert_params / generator_params: the JAX package's parameter trees
     (numpy). centroids: (K, 80) mel codebook, uncentred. Runs on the CUDA
     card unless `device="cpu"` is passed.
+
+    `generator` overrides the vocoder: a loaded module with the same
+    (B, in_dim, F) → (B, 1, T) contract, such as the iSTFT engine from
+    `convert.from_jax.istft_generator_from_jax` or a FastGenerator from a
+    reference `g_*` file (`convert.hifigan_torch`); `hubert` likewise takes
+    a loaded EncoderWithHead (`convert.hubert_torch.convert_custom_model`).
+    Each override excludes its tree: pass None for it.
+
+    Every entry point returns as soon as its work is enqueued on the card
+    (host arrays are staged through pinned memory); read the results, or
+    wait on them (`infer.serving.force`), to synchronise.
     """
 
     def __init__(self, cfg: InpainterConfig, hubert_params, generator_params,
-                 centroids, *, device=None):
+                 centroids, *, generator=None, hubert=None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         C = torch.as_tensor(centroids, dtype=torch.float32,
                             device=self.device)
-        self.hubert = hubert_from_jax(cfg.hubert, hubert_params,
-                                      out_dim=C.shape[-1], device=self.device)
-        self.generator = generator_from_jax(cfg.hifigan, generator_params,
-                                            device=self.device)
+        for name, tree, module in (("hubert", hubert_params, hubert),
+                                   ("generator", generator_params,
+                                    generator)):
+            if (tree is None) == (module is None):
+                raise ValueError(f"pass either {name}_params or the loaded "
+                                 f"`{name}=` module, not both or neither")
+        self.hubert = (hubert.to(self.device) if hubert is not None
+                       else hubert_from_jax(cfg.hubert, hubert_params,
+                                            out_dim=C.shape[-1],
+                                            device=self.device))
+        self.generator = (generator.to(self.device) if generator is not None
+                          else generator_from_jax(cfg.hifigan,
+                                                  generator_params,
+                                                  device=self.device))
         self._center = C.mean(dim=0)
         self._C_centered = C - self._center[None, :]
         self._cn = self._C_centered / self._C_centered.norm(
             dim=-1, keepdim=True).clamp(min=1e-8)
+
+    def _inputs(self, wav22, mask_pos, mask_len):
+        dev = self.device
+        return (_stage(wav22, torch.float32, dev),
+                _stage(mask_pos, torch.int64, dev),
+                _stage(mask_len, torch.int64, dev))
 
     @torch.inference_mode()
     @full_f32()
@@ -99,11 +142,8 @@ class InformedInpainter:
         20 ms frames. Returns inpainted (B, T), mel_masked and mel_inpainted
         (B, 80, F), pred_labels (B, frames). Float32 work runs in full
         float32 whatever the caller's TF32 flags (`device.full_f32`)."""
-        dev = self.device
-        wav22 = torch.as_tensor(wav22, dtype=torch.float32, device=dev)
-        wav16 = torch.as_tensor(wav16, dtype=torch.float32, device=dev)
-        mask_pos = torch.as_tensor(mask_pos, dtype=torch.int64, device=dev)
-        mask_len = torch.as_tensor(mask_len, dtype=torch.int64, device=dev)
+        wav22, mask_pos, mask_len = self._inputs(wav22, mask_pos, mask_len)
+        wav16 = _stage(wav16, torch.float32, self.device)
         mel = _masked_mel22(wav22, mask_pos, mask_len)        # (B, 80, F)
 
         masked16 = mask_wave_frames(wav16, mask_pos, mask_len)
@@ -121,9 +161,50 @@ class InformedInpainter:
         return dict(inpainted=wav[:, 0], mel_masked=mel,
                     mel_inpainted=inpainted_mel, pred_labels=pred_labels)
 
+    @torch.inference_mode()
+    @full_f32()
+    def batch_expected(self, wav22, target_labels, mask_pos,
+                       mask_len) -> dict:
+        """The oracle ('expected_inpaint'): the TRUE centroid frames,
+        target_labels (B, F) on the whole mel frame grid, spliced over the
+        masked span and vocoded. Returns expected_inpaint (B, T) and
+        mel_expected (B, 80, F)."""
+        wav22, mask_pos, mask_len = self._inputs(wav22, mask_pos, mask_len)
+        labels = _stage(target_labels, torch.int64, self.device)
+        mel = _masked_mel22(wav22, mask_pos, mask_len)
+        exp_mel = _splice(mel, self._C_centered[labels] + self._center,
+                          mask_pos, mask_len)
+        wav = self.generator(extend_mel(exp_mel))
+        return dict(expected_inpaint=wav[:, 0], mel_expected=exp_mel)
+
+    @torch.inference_mode()
+    @full_f32()
+    def _hifi_masked(self, wav22, mask_pos, mask_len) -> torch.Tensor:
+        """The masked mel vocoded as it is, (B, T)."""
+        wav22, mask_pos, mask_len = self._inputs(wav22, mask_pos, mask_len)
+        mel = _masked_mel22(wav22, mask_pos, mask_len)
+        return self.generator(extend_mel(mel))[:, 0]
+
     def __call__(self, wav22, wav16, mask_pos: int, mask_len: int) -> dict:
         """One utterance: wav22 (T22,), wav16 (T16,); mask in 20 ms frames."""
         out = self.batch(torch.as_tensor(wav22)[None],
                          torch.as_tensor(wav16)[None],
                          torch.tensor([mask_pos]), torch.tensor([mask_len]))
         return {k: v[0] for k, v in out.items()}
+
+    def expected_inpaint(self, wav22, target_labels, mask_pos: int,
+                         mask_len: int) -> dict:
+        """`batch_expected` on one utterance: target_labels (F,)."""
+        out = self.batch_expected(torch.as_tensor(wav22)[None],
+                                  torch.as_tensor(target_labels)[None],
+                                  torch.tensor([mask_pos]),
+                                  torch.tensor([mask_len]))
+        return {k: v[0] for k, v in out.items()}
+
+    def hifi_masked(self, wav22, mask_pos: int, mask_len: int
+                    ) -> torch.Tensor:
+        """The reference's 'hifi_masked.wav': one utterance's masked mel
+        vocoded as it is, (T,)."""
+        return self._hifi_masked(torch.as_tensor(wav22)[None],
+                                 torch.tensor([mask_pos]),
+                                 torch.tensor([mask_len]))[0]

@@ -106,7 +106,9 @@ class Generator(nn.Module):
         return resblock1_reference(x, p["w1"], p["b1"], p["w2"], p["b2"],
                                    dilations)
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def trunk(self, mel: torch.Tensor) -> torch.Tensor:
+        """conv_pre, then each upsampler and its multi-receptive-field
+        fusion, then the leaky ReLU before conv_post."""
         cfg = self.cfg
         nk = len(cfg.resblock_kernel_sizes)
         x = self.conv_pre(mel.to(self.conv_pre.weight.dtype))
@@ -117,5 +119,7 @@ class Generator(nn.Module):
                 out = self.resblock(x, self.resblocks[i * nk + j], tuple(rd))
                 xs = out if xs is None else xs + out
             x = xs / nk
-        x = F.leaky_relu(x, 0.01)  # torch's default slope before conv_post
-        return torch.tanh(self.conv_post(x))
+        return F.leaky_relu(x, 0.01)  # torch's default slope
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.conv_post(self.trunk(mel)))

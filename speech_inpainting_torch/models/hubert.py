@@ -1,14 +1,20 @@
-"""HuBERT-base encoder with the I_ea prediction head (post-LN arrangement).
+"""HuBERT encoder with the I_ea prediction head, base and large.
 
-Counterpart of speech_inpainting_tpu/models/hubert.py for the base model:
-a 7-layer strided conv feature encoder (GroupNorm(C, C) after conv 0 only,
-exact GELU), LayerNorm and projection, a grouped conv positional embedding,
-and a post-LN transformer; the head is LayerNorm + Linear to the codebook
-width. Inputs and outputs keep the JAX layout: wav (B, T) → (B, frames, D).
+Counterpart of speech_inpainting_tpu/models/hubert.py: a 7-layer strided
+conv feature encoder (exact GELU), LayerNorm and projection, a grouped conv
+positional embedding and a transformer; the head is LayerNorm + Linear to
+the codebook width. Two arrangements, as the JAX package has them:
+  - base (`feat_extract_norm="group"`): bias-free convs with GroupNorm(C, C)
+    after conv 0 only, a LayerNorm before the post-LN layers;
+  - large (`feat_extract_norm="layer"`, `do_stable_layer_norm`): conv
+    biases and a LayerNorm over channels after every conv, pre-LN layers,
+    and the LayerNorm after the last layer (not after a tapped one).
+Inputs and outputs keep the JAX layout: wav (B, T) → (B, frames, D).
 
 `cfg.dtype` plays flax's `dtype`: the convs and the transformer's dense
-layers compute in it, while the norms, the softmax, the residual stream and
-the head stay in float32.
+layers compute in it, while the norms, the softmax and the head stay in
+float32. The residual stream is float32 in base, which normalises it
+before the layers, and `cfg.dtype` in large, as flax leaves it there.
 """
 from __future__ import annotations
 
@@ -25,10 +31,13 @@ class HubertConfig:
     conv_dim: Tuple[int, ...] = (512,) * 7
     conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
     conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_bias: bool = False
+    feat_extract_norm: str = "group"      # "group" (base) | "layer" (large)
     hidden_size: int = 768
     num_hidden_layers: int = 12
     num_attention_heads: int = 12
     intermediate_size: int = 3072
+    do_stable_layer_norm: bool = False   # pre-LN layers (large)
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
     layer_norm_eps: float = 1e-5
@@ -37,6 +46,14 @@ class HubertConfig:
     @staticmethod
     def base(**over) -> "HubertConfig":
         return HubertConfig(**over)
+
+    @staticmethod
+    def large(**over) -> "HubertConfig":
+        d = dict(conv_bias=True, feat_extract_norm="layer", hidden_size=1024,
+                 num_hidden_layers=24, num_attention_heads=16,
+                 intermediate_size=4096, do_stable_layer_norm=True)
+        d.update(over)
+        return HubertConfig(**d)
 
 
 class LayerNorm32(nn.LayerNorm):
@@ -55,23 +72,33 @@ class Dense(nn.Linear):
 
 
 class FeatureEncoder(nn.Module):
-    """Strided conv stack over the waveform: (B, T) → (B, frames, C)."""
+    """Strided conv stack over the waveform: (B, T) → (B, frames, C).
+    `norms` holds the flax names: `norm_0`, a GroupNorm, for "group";
+    `norm_0` … `norm_6`, LayerNorms over channels, for "layer"."""
 
     def __init__(self, cfg: HubertConfig):
         super().__init__()
         chans = (1,) + tuple(cfg.conv_dim)
         self.convs = nn.ModuleList(
-            nn.Conv1d(chans[i], chans[i + 1], k, stride=s, bias=False)
+            nn.Conv1d(chans[i], chans[i + 1], k, stride=s, bias=cfg.conv_bias)
             for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)))
-        self.norm_0 = nn.GroupNorm(cfg.conv_dim[0], cfg.conv_dim[0],
-                                   eps=cfg.layer_norm_eps)
+        self.layer_norms = cfg.feat_extract_norm == "layer"
+        if self.layer_norms:
+            self.norms = nn.ModuleDict({
+                f"norm_{i}": LayerNorm32(c, eps=cfg.layer_norm_eps)
+                for i, c in enumerate(cfg.conv_dim)})
+        else:
+            self.norms = nn.ModuleDict({"norm_0": nn.GroupNorm(
+                cfg.conv_dim[0], cfg.conv_dim[0], eps=cfg.layer_norm_eps)})
 
     def forward(self, wav):
         x = wav[:, None, :].to(self.convs[0].weight.dtype)
         for i, conv in enumerate(self.convs):
             x = conv(x)
-            if i == 0:  # per-channel statistics over time, in float32
-                n = self.norm_0
+            n = self.norms[f"norm_{i}"] if f"norm_{i}" in self.norms else None
+            if self.layer_norms:  # over channels, in f32
+                x = n(x.transpose(1, 2)).transpose(1, 2).to(x.dtype)
+            elif n is not None:  # GroupNorm(C, C): per channel over time
                 x = F.group_norm(x.float(), n.num_groups, n.weight.float(),
                                  n.bias.float(), n.eps).to(x.dtype)
             x = F.gelu(x)
@@ -125,10 +152,11 @@ class FeedForward(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """Post-LN transformer layer (HuBERT-base)."""
+    """Transformer layer: post-LN (base) or pre-LN (large, `pre_ln`)."""
 
     def __init__(self, cfg: HubertConfig):
         super().__init__()
+        self.pre_ln = cfg.do_stable_layer_norm
         self.attention = SelfAttention(cfg)
         self.layer_norm = LayerNorm32(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.feed_forward = FeedForward(cfg)
@@ -136,6 +164,9 @@ class EncoderLayer(nn.Module):
                                             eps=cfg.layer_norm_eps)
 
     def forward(self, x):
+        if self.pre_ln:
+            x = x + self.attention(self.layer_norm(x))
+            return x + self.feed_forward(self.final_layer_norm(x))
         x = self.layer_norm(x + self.attention(x))
         return self.final_layer_norm(x + self.feed_forward(x))
 
@@ -144,12 +175,15 @@ class HubertModel(nn.Module):
     """Waveform (B, T) → frame embeddings (B, frames, hidden).
 
     `tap_layer` N returns the hidden states after N transformer layers (the
-    fairseq `output_layer=N` convention), None the output of them all. Base
-    is post-LN, so no final LayerNorm follows in either case.
+    fairseq `output_layer=N` convention), None the output of them all.
+    `encoder_layer_norm` runs before the layers in base (post-LN) and after
+    the last one in large (pre-LN), there only when `tap_layer` is None: a
+    tapped large model applies no LayerNorm at the tap.
     """
 
     def __init__(self, cfg: HubertConfig):
         super().__init__()
+        self.pre_ln = cfg.do_stable_layer_norm
         self.feature_extractor = FeatureEncoder(cfg)
         self.fp_layer_norm = LayerNorm32(cfg.conv_dim[-1],
                                          eps=cfg.layer_norm_eps)
@@ -162,9 +196,13 @@ class HubertModel(nn.Module):
 
     def forward(self, wav, tap_layer: int | None = None):
         x = self.fp_projection(self.fp_layer_norm(self.feature_extractor(wav)))
-        x = self.encoder_layer_norm(x + self.pos_conv_embed(x))
+        x = x + self.pos_conv_embed(x)
+        if not self.pre_ln:
+            x = self.encoder_layer_norm(x)
         for layer in self.layers[:tap_layer]:
             x = layer(x)
+        if self.pre_ln and tap_layer is None:
+            x = self.encoder_layer_norm(x)
         return x
 
 

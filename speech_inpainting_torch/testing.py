@@ -4,13 +4,17 @@ Parameter trees with the JAX package's flax names and shapes, made with numpy
 so that nothing here needs JAX: the scales follow the flax initialisers
 (he/lecun normal, HiFi-GAN's N(0, 0.01)), and weight-norm magnitudes g = ‖v‖.
 `chip_smoke.py` drives the full-width path with them on the card, and the
-parity tests hand the same trees to the JAX package and to the port.
+parity tests hand the same trees to the JAX package and to the port. The
+same weights also come as torch state dicts in the reference's checkpoint
+layouts (`custom_model_state_dict`, `generator_state_dict`), for the
+loaders of convert/hubert_torch.py and convert/hifigan_torch.py.
 """
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
 
 
 def _wn(rng, shape, std=None):
@@ -47,7 +51,11 @@ def generator_tree(cfg, rng, carry: bool = False) -> dict:
             tree[f"resblocks_{i}_{j}"] = {
                 f"convs{n}_{s}": conv((ch, ch, rk), ch)
                 for n in (1, 2) for s in range(len(rd))}
-    tree["conv_post"] = conv((1, c0 // 2 ** len(cfg.upsample_rates), 7), 1)
+    # one waveform channel, or the iSTFT head's n_fft + 2 (magnitude and
+    # phase) for models/hifigan_istft.py's configuration
+    n_post = cfg.istft_n_fft + 2 if hasattr(cfg, "istft_n_fft") else 1
+    tree["conv_post"] = conv(
+        (n_post, c0 // 2 ** len(cfg.upsample_rates), 7), n_post)
     return tree
 
 
@@ -66,14 +74,17 @@ def _norm(n):
 
 
 def hubert_model_tree(cfg, rng) -> dict:
-    """The headless `HubertModel` tree (I_da taps it)."""
+    """The headless `HubertModel` tree (I_da taps it), base or large."""
     h = cfg.hidden_size
     fe, c_in = {}, 1
     for i, (c, k) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel)):
         fe[f"conv_{i}_w"] = _normal(rng, (c, c_in, k), c_in * k,
                                     math.sqrt(2.0))
+        if cfg.conv_bias:
+            fe[f"conv_{i}_b"] = np.zeros(c, np.float32)
+        if i == 0 or cfg.feat_extract_norm == "layer":
+            fe[f"norm_{i}"] = _norm(c)
         c_in = c
-    fe["norm_0"] = _norm(cfg.conv_dim[0])
     k, g = cfg.num_conv_pos_embeddings, cfg.num_conv_pos_embedding_groups
     v = _normal(rng, (h, h // g, k), h // g * k, math.sqrt(2.0))
     hub = {"feature_extractor": fe, "fp_layer_norm": _norm(cfg.conv_dim[-1]),
@@ -100,6 +111,83 @@ def hubert_tree(cfg, out_dim, rng) -> dict:
     return {"hubert": hub,
             "head": {"layer_norm": _norm(h),
                      "linear": _dense(rng, h, out_dim)}}
+
+
+def _pt(a):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+
+
+def _ln_sd(prefix, p) -> dict:
+    return {f"{prefix}.weight": _pt(p["scale"]), f"{prefix}.bias": _pt(p["bias"])}
+
+
+def _dense_sd(prefix, p) -> dict:
+    return {f"{prefix}.weight": _pt(p["kernel"].T),
+            f"{prefix}.bias": _pt(p["bias"])}
+
+
+def custom_model_state_dict(tree: dict, cfg) -> dict:
+    """The I_ea `CustomModel` state dict, in the reference's layout, of the
+    weights of an `EncoderWithHead` tree (`hubert_tree`): HF `HubertModel`
+    keys under `base_model.` (the positional conv's weight norm as the
+    legacy `weight_g` (1, 1, K) and `weight_v`) and the head as
+    `final_layers.0` (LayerNorm) and `final_layers.1` (Linear), torch
+    tensors."""
+    hub, fe = tree["hubert"], tree["hubert"]["feature_extractor"]
+    sd = {}
+    for i in range(len(cfg.conv_dim)):
+        p = f"base_model.feature_extractor.conv_layers.{i}"
+        sd[f"{p}.conv.weight"] = _pt(fe[f"conv_{i}_w"])
+        if f"conv_{i}_b" in fe:
+            sd[f"{p}.conv.bias"] = _pt(fe[f"conv_{i}_b"])
+        if f"norm_{i}" in fe:
+            sd.update(_ln_sd(f"{p}.layer_norm", fe[f"norm_{i}"]))
+    sd.update(_ln_sd("base_model.feature_projection.layer_norm",
+                     hub["fp_layer_norm"]))
+    sd.update(_dense_sd("base_model.feature_projection.projection",
+                        hub["fp_projection"]))
+    pc, p = hub["pos_conv_embed"], "base_model.encoder.pos_conv_embed.conv"
+    sd[f"{p}.weight_g"] = _pt(pc["conv_g"].reshape(1, 1, -1))
+    sd[f"{p}.weight_v"] = _pt(pc["conv_v"])
+    sd[f"{p}.bias"] = _pt(pc["conv_b"])
+    sd.update(_ln_sd("base_model.encoder.layer_norm",
+                     hub["encoder_layer_norm"]))
+    for i in range(cfg.num_hidden_layers):
+        lp, p = hub[f"layers_{i}"], f"base_model.encoder.layers.{i}"
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd.update(_dense_sd(f"{p}.attention.{n}", lp["attention"][n]))
+        for n in ("intermediate_dense", "output_dense"):
+            sd.update(_dense_sd(f"{p}.feed_forward.{n}",
+                                lp["feed_forward"][n]))
+        sd.update(_ln_sd(f"{p}.layer_norm", lp["layer_norm"]))
+        sd.update(_ln_sd(f"{p}.final_layer_norm", lp["final_layer_norm"]))
+    sd.update(_ln_sd("final_layers.0", tree["head"]["layer_norm"]))
+    sd.update(_dense_sd("final_layers.1", tree["head"]["linear"]))
+    return sd
+
+
+def generator_state_dict(tree: dict, cfg) -> dict:
+    """The HiFi-GAN generator state dict, in the reference's layout (the
+    `generator` entry of a `g_*` file), of the weights of a `Generator`
+    tree (`generator_tree`): legacy weight norm, `weight_g` (C_out, 1, 1) —
+    (C_in, 1, 1) on the transposed upsamplers, whose weight is
+    (C_in, C_out, K) — `weight_v` and `bias`, torch tensors."""
+    nk = len(cfg.resblock_kernel_sizes)
+
+    def wn(prefix, p):
+        return {f"{prefix}.weight_g": _pt(p["g"].reshape(-1, 1, 1)),
+                f"{prefix}.weight_v": _pt(p["v"]),
+                f"{prefix}.bias": _pt(p["b"])}
+
+    sd = {**wn("conv_pre", tree["conv_pre"]),
+          **wn("conv_post", tree["conv_post"])}
+    for i in range(len(cfg.upsample_rates)):
+        sd.update(wn(f"ups.{i}", tree[f"ups_{i}"]))
+        for j in range(nk):
+            for name, p in tree[f"resblocks_{i}_{j}"].items():
+                conv, s = name.split("_")
+                sd.update(wn(f"resblocks.{i * nk + j}.{conv}.{s}", p))
+    return sd
 
 
 def codegen_tree(cfg, rng) -> tuple[dict, dict]:

@@ -1,6 +1,6 @@
 """Where the port's bfloat16 paths compute in which type, held against the
-flax modules' own split: the HuBERT EncoderWithHead and the HiFi-GAN
-Generator built with `dtype=jnp.bfloat16` on the JAX side and
+flax modules' own split: the HuBERT EncoderWithHead (base and large) and
+the HiFi-GAN Generator built with `dtype=jnp.bfloat16` on the JAX side and
 `dtype=torch.bfloat16` on the port's.
 
 The outputs alone cannot show the split: the port's bf16 output lies about
@@ -26,6 +26,7 @@ as a bf16 constant) with other rounding than torch's round-once.
 import collections
 
 import numpy as np
+import pytest
 import torch
 from torch.overrides import TorchFunctionMode
 
@@ -117,20 +118,26 @@ def _port_census(module, *args):
     return census.counts
 
 
-def test_hubert_bf16_computes_in_flax_types(rng):
-    cfg = HubertConfig.base(**TINY)
+@pytest.mark.parametrize("arrangement", ["base", "large"])
+def test_hubert_bf16_computes_in_flax_types(rng, arrangement):
+    cfg = getattr(HubertConfig, arrangement)(**TINY)
     params = testing.hubert_tree(cfg, 80, rng)
     wav = rng.standard_normal((2, 4000)).astype(np.float32) * 0.3
-    model = EncoderWithHead(JaxConfig.base(**TINY, dtype=jnp.bfloat16),
-                            out_dim=80)
+    model = EncoderWithHead(
+        getattr(JaxConfig, arrangement)(**TINY, dtype=jnp.bfloat16),
+        out_dim=80)
     want = _flax_census(model.apply, {"params": params}, jnp.asarray(wav))
-    port = hubert_from_jax(HubertConfig.base(**TINY, dtype=torch.bfloat16),
-                           params, out_dim=80, device="cpu")
+    port = hubert_from_jax(
+        getattr(HubertConfig, arrangement)(**TINY, dtype=torch.bfloat16),
+        params, out_dim=80, device="cpu")
     got = _port_census(port, torch.tensor(wav))
     # the split itself: convs and the encoder's dense layers in bf16, the
-    # head in f32, every norm and softmax in f32
+    # head in f32, every norm and softmax in f32 (large: a LayerNorm after
+    # each of the 7 convs, where base has one GroupNorm)
     assert want[("conv", ("bfloat16", "bfloat16"))] == 8
     assert want[("dot", ("float32", "float32"))] == 1
+    assert want[("norm", ("float32",))] == (
+        2 * 2 + 3 + (7 if arrangement == "large" else 1))
     assert set(k for k in want if k[0] in ("norm", "softmax")) == {
         ("norm", ("float32",)), ("softmax", ("float32",))}
     assert got == want

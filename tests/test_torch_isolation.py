@@ -1,4 +1,5 @@
-"""The port stands apart from JAX and from the JAX package, builds its
+"""The port stands apart from JAX, the JAX package and transformers (it
+reads HF-layout state dicts as they are), builds its
 kernels by nvcc + ctypes only, never falls back to the CPU unasked, and pins
 full float32 (no TF32) inside its entry points without touching the
 caller's flags."""
@@ -14,7 +15,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "speech_inpainting_torch"
-BANNED = ("jax", "jaxlib", "flax", "speech_inpainting_tpu")
+BANNED = ("jax", "jaxlib", "flax", "speech_inpainting_tpu", "transformers")
 
 
 def _port_modules():
@@ -79,7 +80,14 @@ def test_entry_points_refuse_the_cpu_unasked():
         pytest.skip("this host has a card: the default device is usable")
     from speech_inpainting_torch import resolve_device
     from speech_inpainting_torch.convert.from_jax import (
-        codegen_from_jax, generator_from_jax, hubert_model_from_jax)
+        codegen_from_jax, generator_from_jax, hubert_model_from_jax,
+        istft_generator_from_jax)
+    from speech_inpainting_torch.convert.hifigan_torch import (
+        convert_generator)
+    from speech_inpainting_torch.convert.hubert_torch import (
+        convert_custom_model, convert_hf_hubert)
+    from speech_inpainting_torch.models.hifigan_istft import (
+        ISTFTGeneratorConfig)
     from speech_inpainting_torch.infer.ida_inpaint import IdaInpainter
     from speech_inpainting_torch.infer.inpaint import (InformedInpainter,
                                                        InpainterConfig)
@@ -98,7 +106,11 @@ def test_entry_points_refuse_the_cpu_unasked():
                  lambda: hubert_model_from_jax(HubertConfig.base(), {}),
                  lambda: Resynthesizer(cg, {}, {}),
                  lambda: IdaInpainter(cg, {}, {}, HubertConfig.base(), {},
-                                      np.zeros((3, 768), np.float32))):
+                                      np.zeros((3, 768), np.float32)),
+                 lambda: istft_generator_from_jax(ISTFTGeneratorConfig(), {}),
+                 lambda: convert_generator({}, HiFiGANConfig()),
+                 lambda: convert_custom_model({}, HubertConfig.large()),
+                 lambda: convert_hf_hubert({}, HubertConfig.large())):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
@@ -151,6 +163,9 @@ def test_entry_points_run_in_full_f32(monkeypatch):
     monkeypatch.setattr(cudnn, "allow_tf32", True)
     for cls, method, args in (
             (inpaint.InformedInpainter, "batch", ([0.0], [0.0], [0], [0])),
+            (inpaint.InformedInpainter, "batch_expected",
+             ([0.0], [0], [0], [0])),
+            (inpaint.InformedInpainter, "_hifi_masked", ([0.0], [0], [0])),
             (ida_inpaint.IdaInpainter, "inpaint", ([0.0], 0, 1)),
             (resynth.Resynthesizer, "__call__", ([[0]],))):
         obj = object.__new__(cls)
@@ -161,4 +176,4 @@ def test_entry_points_run_in_full_f32(monkeypatch):
         monkeypatch.undo()
         monkeypatch.setattr(cudnn, "allow_tf32", True)
         assert cudnn.allow_tf32
-    assert seen == [False, False, False]
+    assert seen == [False] * 5

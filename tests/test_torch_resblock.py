@@ -153,6 +153,12 @@ def _stages(config, frames, B):
 PLAN_SHAPES = {
     # I_ea: V1 at B = 4 × 4 s, 344 mel frames of hop 256
     "I_ea": list(_stages("hifigan_v1.json", 344, 4)),
+    # the long-form windows (4 s, batch 8) and the serving batches of
+    # chip_smoke.py (B = 64, and bench.py's 256), through V1; the iSTFT
+    # engine's trunk is V1's first two stages, at I_ea's shapes
+    "longform": list(_stages("hifigan_v1.json", 344, 8)),
+    "serving_64": list(_stages("hifigan_v1.json", 344, 64)),
+    "serving_256": list(_stages("hifigan_v1.json", 344, 256)),
     # I_da: the unit vocoder at B = 1, 196 code frames (a 4 s utterance)
     "I_da": list(_stages("da_hubert100_lut.json", 196, 1)),
     # chip_smoke.py's K1 check: V1's 12 (C, K) shapes at B = 2, T = 2049
