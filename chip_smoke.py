@@ -76,9 +76,37 @@ it stopped); any failure raises and exits non-zero:
                 codebook written to a temporary directory: every artifact
                 written (mel PNGs where matplotlib is installed), inpainted
                 wav within 1 int16 step of a direct call, `--long-form` with
-                two masks.
-Then the `spills` and `kernels` lines (K1's launches on each path), and last
-{"ok": true, "device": {...}}.
+                two masks;
+  ida_cli       `inpaint_da.main` on the card at full width (the config,
+                weights and codebook of `ida_main`) on files written to a
+                temporary directory: two 4 s wavs in a JSON-lines manifest,
+                a reference-layout CodeGenerator `g_*`, an HF HuBERT-base
+                directory (config.json + pytorch_model.bin) and a .npy
+                codebook; masks 100-400 ms: every artifact written, 180 K2
+                launches per utterance per mask, `_inpainted_200.wav` within
+                1 int16 step of a direct `IdaInpainter` call, median RTF;
+  vocode        the `vocode` CLI with a V1 `g_*` (full width, B = 1):
+                wav2wav on two 4 s 22.05 kHz wavs, mel2wav on their mels,
+                --quantize-mel with a 100×80 codebook, card vs CPU (files
+                within 4 int16 steps; the generator's waveform atol 1e-4),
+                kernel path vs plain path (atol 1e-4), 72 K2 launches per
+                forward, K2 against its plain version at every (C, K, d)
+                step of these lengths, ms per forward (f32, bf16);
+  v3            `vocode wav2wav` with a V3 `g_*` (ResBlock2, full width):
+                card vs CPU, no K2 launch, ms per forward beside V1's;
+  f0vq          `FoVQVAE.__call__` at configs/f0_vqvae.json's width on the
+                f0 of a 4 s utterance from a reference `g_*`: card vs CPU,
+                reconstruction atol 1e-4, units equal;
+  content_vq    `vocode codes` and the CodeGenerator's content-VQ forward
+                (from units and from a waveform) at tests/test_codegen.py's
+                geometry (generator 64 wide): card vs CPU, units equal,
+                waveforms atol 1e-4;
+  kmeans_fit    `fit_kmeans` with k = 100 over 200 000 × 768 rows, 50
+                iterations, 3 restarts (seconds, inertia); `_lloyd` card vs
+                CPU from one start on 20 000 rows (inertia rel 1e-5, at
+                most 0.1% of labels different).
+Then the `spills` and `kernels` lines (K1's and K2's launches on each
+path), and last {"ok": true, "device": {...}}.
 
 `--unpinned` runs only `device`, `build` and `default_flags`, with the
 entry points' pinning made a no-op: the phase must then fail (exit 0 when
@@ -748,9 +776,10 @@ def _ida_shapes(path):
                 yield C, T, K, d
 
 
-def phase_ida_kernel_check(torch, path) -> dict:
-    """K2 vs its plain version at every (C, K, d) of the I_da generator, at
-    the path's B = 1 and per-stage T."""
+def phase_ida_kernel_check(torch, path, name="ida_kernel_check") -> dict:
+    """K2 vs its plain version at every (C, K, d) of a generator's
+    ResBlock1 steps (the I_da generator's, or V1's for `vocode`), at the
+    path's B = 1 and per-stage T."""
     from speech_inpainting_torch.ops.resblock import (fused_resblock_step,
                                                       resblock_step_reference)
     rng = np.random.default_rng(SEED)
@@ -765,7 +794,7 @@ def phase_ida_kernel_check(torch, path) -> dict:
         rel = ((got - want).abs().max() / want.abs().max()).item()
         torch.cuda.synchronize()
         ok = err <= F32_ATOL and rel <= BF16_RTOL
-        emit({"phase": "ida_kernel_check", "C": C, "K": K, "dilation": d,
+        emit({"phase": name, "C": C, "K": K, "dilation": d,
               "B": 1, "T": T, "f32_max_abs_err": err, "f32_atol": F32_ATOL,
               "bf16_rel_err": rel, "bf16_rtol": BF16_RTOL, "ok": ok})
         if not ok:
@@ -774,7 +803,7 @@ def phase_ida_kernel_check(torch, path) -> dict:
         worst["f32_max_abs_err"] = max(worst["f32_max_abs_err"], err)
         worst["bf16_rel_err"] = max(worst["bf16_rel_err"], rel)
         worst["shapes"] += 1
-    emit({"phase": "ida_kernel_check_summary", **worst})
+    emit({"phase": f"{name}_summary", **worst})
     return worst
 
 
@@ -1405,6 +1434,545 @@ def phase_cli(torch, large) -> dict:
     return {"launches": launches}
 
 
+# ------------------------------------------ the I_da paths as users run them
+
+CONFIGS = Path(__file__).resolve().parent / "configs"
+IDA_CLI_MASKS_MS = (100, 200, 300, 400)    # inpaint_da's default masks
+# tests/test_codegen.py:144-160's content-VQ geometry (no content-VQ config
+# file is in the repository) with the generator 64 wide, not 16: K2 takes
+# C in multiples of 16, and 16 would give stages of 8 and 4 channels
+CONTENT_VQ = {
+    "resblock": "1", "upsample_rates": [2, 2], "upsample_kernel_sizes": [4, 4],
+    "upsample_initial_channel": 64, "resblock_kernel_sizes": [3],
+    "resblock_dilation_sizes": [[1, 3]], "model_in_dim": 16,
+    "sampling_rate": 16000, "num_embeddings": 6, "embedding_dim": 16,
+    "lambda_commit_code": 1.0,
+    "code_encoder_params": {"input_emb_width": 1, "output_emb_width": 16,
+                            "levels": 1, "downs_t": [2], "strides_t": [2],
+                            "width": 8, "depth": 1,
+                            "dilation_growth_rate": 3},
+    "code_vq_params": {"l_bins": 6, "emb_width": 16}}
+KMEANS_ROWS, KMEANS_DIM, KMEANS_K = 200_000, 768, 100
+
+
+def _spread_rows(frames: np.ndarray, n: int) -> np.ndarray:
+    """n rows of `frames`, each the farthest from those chosen before it
+    (the first the farthest from their mean): a codebook with no two rows
+    from one region, as training leaves one. Random rows would often take
+    two frames of one silence, and every silent frame would then lie on a
+    tie between them."""
+    chosen = [int(np.argmax(((frames - frames.mean(0)) ** 2).sum(1)))]
+    d = ((frames - frames[chosen[0]]) ** 2).sum(1)
+    for _ in range(n - 1):
+        chosen.append(int(np.argmax(d)))
+        d = np.minimum(d, ((frames - frames[chosen[-1]]) ** 2).sum(1))
+    return frames[chosen]
+
+
+def _write_wav(path, wav, sr) -> None:
+    from scipy.io import wavfile
+    wavfile.write(path, sr, (np.asarray(wav) * 32767).astype(np.int16))
+
+
+def _int16_steps(a, b) -> int:
+    from scipy.io import wavfile
+    x, y = wavfile.read(a)[1], wavfile.read(b)[1]
+    if x.shape != y.shape:
+        return 1 << 16
+    return int(np.abs(x.astype(np.int32) - y).max())
+
+
+def phase_ida_cli(torch, ida) -> dict:
+    """`inpaint_da.main` on the card as a user runs it, at full width
+    (configs/da_hubert100_lut.json, HuBERT-base tapped at layer 6, the
+    100×768 codebook of `ida_main`), on files written to a temporary
+    directory: two synthetic 4 s 16 kHz wavs and a JSON-lines manifest, a
+    reference-layout CodeGenerator `g_*` ({"generator": sd}, weight_g /
+    weight_v, emb_c, emb_p, fo_vqvae.*), an HF HuBERT-base directory
+    (config.json + pytorch_model.bin) and a .npy codebook. Masks 100-400
+    ms: every artifact written, K2's launches (180 per utterance per
+    mask), `_inpainted_200.wav` within 1 int16 step of a direct
+    `IdaInpainter` call on the same trees, the median RTF."""
+    import tempfile
+    from speech_inpainting_torch.cli import inpaint_da
+    from speech_inpainting_torch.data.audio import load_wav, save_wav
+    from speech_inpainting_torch.data.code_dataset import mel_stats_embedder
+    from speech_inpainting_torch.data.manifests import write_manifest
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    from speech_inpainting_torch.ops.resblock import fused_resblock_step
+    from speech_inpainting_torch.testing import (code_generator_state_dict,
+                                                 jukebox_tree,
+                                                 write_hf_hubert)
+    setup = ida["setup"]
+    cfg = setup["cfg"]
+    rng = np.random.default_rng(SEED + 80)
+    # the reference's files carry the f0-VQ-VAE's decoder too
+    params = dict(setup["params"], fo_vqvae=dict(
+        setup["params"]["fo_vqvae"], decoder=jukebox_tree(
+            cfg.f0_quantizer.decoder, rng, decoder=True)))
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        entries = []
+        for i, u in enumerate(setup["utts"][:2]):
+            _write_wav(d / f"utt{i}.wav", u, 16000)
+            entries.append({"audio": str(d / f"utt{i}.wav"),
+                            "hubert": "1 2 3", "duration": len(u) / 16000})
+        write_manifest(d / "val.jsonl", entries)
+        torch.save({"generator": code_generator_state_dict(
+            params, setup["vq"], cfg)}, d / "g_00400000")
+        write_hf_hubert(d / "hubert-base", setup["hp"], HubertConfig.base())
+        np.save(d / "km.npy", setup["centroids"])
+        fused_resblock_step.launches = 0
+        t0 = time.perf_counter()
+        rtfs = inpaint_da.main([
+            "--config", str(IDA_CONFIG), "--manifest", str(d / "val.jsonl"),
+            "--codegen-checkpoint", str(d / "g_00400000"),
+            "--hubert", str(d / "hubert-base"), "--layer", str(IDA_TAP),
+            "--kmeans", str(d / "km.npy"), "--mask-ms",
+            *map(str, IDA_CLI_MASKS_MS), "--out", str(d / "out"),
+            "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = fused_resblock_step.launches
+        want = sorted(f"utt{i}_{s}.wav" for i in range(2) for s in (
+            "gt", "gen", *(f"{k}_{ms}" for ms in IDA_CLI_MASKS_MS
+                           for k in ("masked", "inpainted"))))
+        written = sorted(p.name for p in (d / "out").iterdir())
+        # the same wav and weights through the inpainter directly
+        wav, _ = load_wav(d / "utt0.wav", target_sr=16000)
+        emb = mel_stats_embedder(cfg.embedding_dim, device="cuda")(wav,
+                                                                   16000)
+        direct = _ida_inpainter(torch, setup, torch.float32)(
+            wav, 3200, emb=emb)["audio_inpainted"]
+        save_wav(d / "direct.wav", direct.cpu().numpy(), 16000)
+        steps = _int16_steps(d / "out" / "utt0_inpainted_200.wav",
+                             d / "direct.wav")
+    n_calls = 2 * len(IDA_CLI_MASKS_MS)
+    ok = (written == want and steps <= 1 and launches == 180 * n_calls
+          and len(rtfs) == n_calls)
+    row = {"phase": "ida_cli", "utterances": 2,
+           "masks_ms": list(IDA_CLI_MASKS_MS), "written": len(written),
+           "expected_written": len(want),
+           "inpainted_200_vs_direct_int16_steps": steps,
+           "launches": launches, "expected_launches": 180 * n_calls,
+           "launches_per_utterance_per_mask": launches / n_calls,
+           "median_rtf": float(np.median(rtfs)), "rtfs": rtfs,
+           "seconds": seconds, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("inpaint_da CLI check failed")
+    return row
+
+
+def _vocode_dir(torch, d: Path, gcfg, tree, rng,
+                codebook: bool) -> np.ndarray:
+    """A `vocode` user's files: a `g_*` of `tree`, two synthetic 4 s
+    22.05 kHz wavs, their VOCODER_MEL_22K mels as .npy (computed on the
+    CPU from the peak-normalised wavs, as the CLI's wav2wav does) and,
+    with `codebook`, a 100×80 codebook of frames of those mels moved off
+    them by noise. Returns the first wav's mel (80, frames)."""
+    from speech_inpainting_torch.data.audio import load_wav, peak_normalize
+    from speech_inpainting_torch.ops.mel import (VOCODER_MEL_22K,
+                                                 mel_spectrogram)
+    from speech_inpainting_torch.testing import (generator_state_dict,
+                                                 synthetic_batch)
+    torch.save({"generator": generator_state_dict(tree, gcfg)},
+               d / "g_02500000")
+    (d / "wavs").mkdir()
+    (d / "mels").mkdir()
+    mels = []
+    for i, w in enumerate(synthetic_batch(rng, 2, 4.0)[0]):
+        _write_wav(d / "wavs" / f"utt{i}.wav", w, 22050)
+        wav, _ = load_wav(d / "wavs" / f"utt{i}.wav", target_sr=22050)
+        mel = pinned(mel_spectrogram, torch.as_tensor(
+            peak_normalize(wav, 0.95)), VOCODER_MEL_22K).numpy()
+        np.save(d / "mels" / f"utt{i}.npy", mel)
+        mels.append(mel)
+    if codebook:
+        frames = np.concatenate([m.T for m in mels])
+        np.save(d / "km.npy", (frames[rng.choice(len(frames), 100,
+                                                 replace=False)]
+                               + 0.05 * rng.standard_normal((100, 80))
+                               ).astype(np.float32))
+    return mels[0]
+
+
+def _vocode_runs(torch, d: Path, config: Path, modes) -> dict:
+    """The `vocode` CLI on the card and on the CPU, each mode: K2's
+    launches and the wall seconds of the card's runs, and the largest gap
+    in int16 steps between the card's and the CPU's files."""
+    from speech_inpainting_torch.cli import vocode
+    from speech_inpainting_torch.ops.resblock import fused_resblock_step
+    extra = {"wav2wav": ["--input-dir", str(d / "wavs")],
+             "quantized": ["--input-dir", str(d / "wavs"), "--quantize-mel",
+                           str(d / "km.npy"), "--quantize-span", "50:200"],
+             "mel2wav": ["--input-dir", str(d / "mels")]}
+    out = {"launches": {}, "seconds": {}, "card_vs_cpu_int16_steps": {}}
+    for mode in modes:
+        cmd = "mel2wav" if mode == "mel2wav" else "wav2wav"
+        for device in ("cuda", "cpu"):
+            fused_resblock_step.launches = 0
+            t0 = time.perf_counter()
+            vocode.main([cmd, *extra[mode], "--checkpoint",
+                         str(d / "g_02500000"), "--config", str(config),
+                         "--out", str(d / f"{mode}_{device}"), "--device",
+                         device])
+            if device == "cuda":
+                torch.cuda.synchronize()
+                out["seconds"][mode] = time.perf_counter() - t0
+                out["launches"][mode] = fused_resblock_step.launches
+        files = sorted(p.name for p in (d / f"{mode}_cuda").iterdir())
+        if files != sorted(p.name for p in (d / f"{mode}_cpu").iterdir()) \
+                or len(files) != 2:
+            raise AssertionError(f"vocode {mode}: files {files}")
+        out["card_vs_cpu_int16_steps"][mode] = max(
+            _int16_steps(d / f"{mode}_cuda" / f, d / f"{mode}_cpu" / f)
+            for f in files)
+        out.setdefault("files", {})[mode] = files
+    return out
+
+
+def _generator_gaps(torch, g_file, gcfg, mel) -> dict:
+    """The `g_*` file's Generator (K2) on one mel: card against CPU, and
+    the card's kernel path against its plain path, f32 waveforms."""
+    from speech_inpainting_torch.convert.hifigan_torch import (
+        load_generator_checkpoint)
+    from speech_inpainting_torch.device import full_f32
+    from speech_inpainting_torch.models.hifigan import Generator
+    card = load_generator_checkpoint(g_file, gcfg, device="cuda",
+                                     cls=Generator)
+    cpu = load_generator_checkpoint(g_file, gcfg, device="cpu",
+                                    cls=Generator)
+    x = torch.as_tensor(mel)[None]
+    with torch.inference_mode(), full_f32():
+        a = card(x.cuda()).cpu()
+        b = cpu(x)
+        card.use_kernel = False
+        plain = card(x.cuda()).cpu()
+    return {"card_vs_cpu_max_abs": (a - b).abs().max().item(),
+            "kernel_vs_plain_max_abs": (a - plain).abs().max().item(),
+            "output_std": b.std().item(), "samples": b.shape[-1]}
+
+
+def _forward_ms(torch, generators: dict, mel, order) -> dict:
+    """ms per forward of each generator on the card at B = 1, in the turns
+    `order` gives (each name twice), averaged per name."""
+    from speech_inpainting_torch.device import full_f32
+    times = {}
+    with torch.inference_mode(), full_f32():
+        x = torch.as_tensor(mel, device="cuda")[None]
+        for name in order:
+            times.setdefault(name, []).append(
+                cuda_ms(lambda: generators[name](x), 5))
+    return {name: sum(v) / len(v) for name, v in times.items()}
+
+
+def phase_vocode(torch) -> dict:
+    """The `vocode` CLI as a user runs it, V1 at full width
+    (configs/hifigan_v1.json, weights that carry the signal), B = 1:
+    `wav2wav` on two 4 s 22.05 kHz wavs, `mel2wav` on their mels and
+    `--quantize-mel` with a 100×80 codebook, each on the card and on the
+    CPU (files within 4 int16 steps: atol 1e-4 plus a step of rounding); 72
+    K2 launches per forward; the generator card vs CPU and kernel path vs
+    plain path (f32 waveform atol 1e-4); K2 against its plain version at
+    every (C, K, d) step of these lengths; ms per forward, f32 and bf16."""
+    import tempfile
+    from speech_inpainting_torch.convert.hifigan_torch import (
+        load_generator_checkpoint)
+    from speech_inpainting_torch.models.hifigan import (Generator,
+                                                        HiFiGANConfig)
+    from speech_inpainting_torch.testing import generator_tree
+    config = CONFIGS / "hifigan_v1.json"
+    gcfg = HiFiGANConfig.from_dict(json.loads(config.read_text()))
+    rng = np.random.default_rng(SEED + 90)
+    tree = generator_tree(gcfg, rng, carry=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        mel = _vocode_dir(torch, d, gcfg, tree, rng, codebook=True)
+        runs = _vocode_runs(torch, d, config,
+                            ("wav2wav", "quantized", "mel2wav"))
+        gaps = _generator_gaps(torch, d / "g_02500000", gcfg, mel)
+        frames = mel.shape[-1]
+        gens = {name: load_generator_checkpoint(
+            d / "g_02500000", dataclasses.replace(gcfg, dtype=dt),
+            device="cuda", cls=Generator)
+            for name, dt in (("f32", torch.float32),
+                             ("bf16", torch.bfloat16))}
+    ms = _forward_ms(torch, gens, mel, ("f32", "bf16", "bf16",
+                                                 "f32"))
+    n = 2 * len(gcfg.upsample_rates) * sum(
+        len(r) for r in gcfg.resblock_dilation_sizes)      # per forward
+    stage_T, t = {}, frames
+    for i, u in enumerate(gcfg.upsample_rates):
+        t *= u
+        stage_T[gcfg.upsample_initial_channel // 2 ** (i + 1)] = t
+    path = {"T": stage_T, "kernel_sizes": gcfg.resblock_kernel_sizes,
+            "dilations": gcfg.resblock_dilation_sizes}
+    ok = (all(v == 2 * n for v in runs["launches"].values())
+          and all(v <= 4 for v in runs["card_vs_cpu_int16_steps"].values())
+          and gaps["card_vs_cpu_max_abs"] <= CPU_ATOL
+          and gaps["kernel_vs_plain_max_abs"] <= MAIN_ATOL
+          and gaps["output_std"] > 0.01)
+    row = {"phase": "vocode", "config": "hifigan_v1.json", "B": 1,
+           "frames": frames, "launches": runs["launches"],
+           "expected_launches_per_mode": 2 * n,
+           "launches_per_forward": n, "cli_seconds": runs["seconds"],
+           "card_vs_cpu_int16_steps": runs["card_vs_cpu_int16_steps"],
+           **gaps, "tolerance": CPU_ATOL, "f32_ms_per_forward": ms["f32"],
+           "bf16_ms_per_forward": ms["bf16"], "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("vocode check failed")
+    errs = phase_ida_kernel_check(torch, path, name="vocode_kernel_check")
+    return {"launches_per_forward": n, "row": row, "kernel_check": errs,
+            "path": path}
+
+
+def phase_v3(torch) -> dict:
+    """`vocode wav2wav` from a V3 `g_*` (configs/hifigan_v3.json at full
+    width, ResBlock2, whose convs are torch's: no K2 launch), on the card
+    and the CPU (files within 4 int16 steps); the generator card vs CPU
+    (f32 atol 1e-4); ms per forward beside V1's, in turns, f32 and
+    bf16."""
+    import tempfile
+    from speech_inpainting_torch.convert.hifigan_torch import (
+        load_generator_checkpoint)
+    from speech_inpainting_torch.models.hifigan import (Generator,
+                                                        HiFiGANConfig)
+    from speech_inpainting_torch.testing import (generator_state_dict,
+                                                 generator_tree)
+    config = CONFIGS / "hifigan_v3.json"
+    gcfg = HiFiGANConfig.from_dict(json.loads(config.read_text()))
+    rng = np.random.default_rng(SEED + 100)
+    tree = generator_tree(gcfg, rng, carry=True)
+    v1cfg = HiFiGANConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        mel = _vocode_dir(torch, d, gcfg, tree, rng, codebook=False)
+        runs = _vocode_runs(torch, d, config, ("wav2wav",))
+        gaps = _generator_gaps(torch, d / "g_02500000", gcfg, mel)
+        torch.save({"generator": generator_state_dict(
+            generator_tree(v1cfg, rng, carry=True), v1cfg)}, d / "g_v1")
+        gens = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "f32" if dtype == torch.float32 else "bf16"
+            for arch, c, f in (("v3", gcfg, d / "g_02500000"),
+                               ("v1", v1cfg, d / "g_v1")):
+                gens[f"{arch}_{name}"] = load_generator_checkpoint(
+                    f, dataclasses.replace(c, dtype=dtype), device="cuda",
+                    cls=Generator)
+    ms = {}
+    for name in ("f32", "bf16"):
+        ms.update(_forward_ms(torch, gens, mel,
+                              (f"v1_{name}", f"v3_{name}", f"v3_{name}",
+                               f"v1_{name}")))
+    ok = (runs["launches"]["wav2wav"] == 0
+          and runs["card_vs_cpu_int16_steps"]["wav2wav"] <= 4
+          and gaps["card_vs_cpu_max_abs"] <= CPU_ATOL
+          and gaps["kernel_vs_plain_max_abs"] == 0.0
+          and gaps["output_std"] > 0.01)
+    row = {"phase": "v3", "config": "hifigan_v3.json", "B": 1,
+           "k2_launches": runs["launches"]["wav2wav"],
+           "cli_seconds": runs["seconds"]["wav2wav"],
+           "card_vs_cpu_int16_steps": runs["card_vs_cpu_int16_steps"],
+           **gaps, "tolerance": CPU_ATOL,
+           "ms_per_forward": ms, "order": "v1, v3, v3, v1 per type",
+           "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("V3 vocode check failed")
+    return row
+
+
+def phase_f0vq(torch) -> dict:
+    """`FoVQVAE.__call__` at full width (configs/f0_vqvae.json: 1 → 32
+    channels, 4 strided stages, 20 × 128 codebook) from a reference-layout
+    f0-VQ-VAE `g_*`, on the normalised f0 track of a synthetic 4 s
+    utterance (computed once, on the CPU): the card against the CPU,
+    reconstruction atol 1e-4, units equal; ms per call."""
+    import tempfile
+    from speech_inpainting_torch.convert.from_jax import fo_vqvae_from_jax
+    from speech_inpainting_torch.convert.ida_torch import (
+        load_fo_vqvae_checkpoint)
+    from speech_inpainting_torch.device import full_f32
+    from speech_inpainting_torch.models.codegen import FoVQVAEConfig
+    from speech_inpainting_torch.ops.f0 import extract_f0, normalize_nonzero
+    from speech_inpainting_torch.testing import (fo_vqvae_state_dict,
+                                                 fo_vqvae_tree,
+                                                 synthetic_utterance)
+    cfg = FoVQVAEConfig.from_dict(json.loads(
+        (CONFIGS / "f0_vqvae.json").read_text()))
+    rng = np.random.default_rng(SEED + 110)
+    params, vq = fo_vqvae_tree(cfg, rng)
+    f0 = pinned(extract_f0, torch.as_tensor(synthetic_utterance(rng, 4.0)))
+    f0 = normalize_nonzero(f0, f0.mean(), f0.std(correction=0))
+    stride = cfg.encoder.total_stride
+    x = f0[:len(f0) // stride * stride][None, None]
+    # the codebook: encoder outputs of this input, spread (training would
+    # have put it there; N(0, 1) rows send nearly every frame to one code)
+    with torch.inference_mode():
+        h = fo_vqvae_from_jax(cfg, params, vq, device="cpu").encoder(x)[0]
+    frames = h[0].t().numpy()
+    vq["vq"]["level_0"]["k"] = _spread_rows(frames, cfg.l_bins)
+    margin = _unit_margin(torch, h[0].t(), vq["vq"]["level_0"]["k"])
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"generator": fo_vqvae_state_dict(params, vq, cfg)},
+                   Path(tmp) / "g_00400000")
+        card, cpu = (load_fo_vqvae_checkpoint(Path(tmp) / "g_00400000", cfg,
+                                              device=dev)
+                     for dev in ("cuda", "cpu"))
+    with torch.inference_mode(), full_f32():
+        a, ca, ma = card(x.cuda())
+        b, cb, mb = cpu(x)
+        ua, ub = card.encode_units(x.cuda()).cpu(), cpu.encode_units(x)
+        ms = cuda_ms(lambda: card(x.cuda()), 10)
+    diff = (a.cpu() - b).abs().max().item()
+    units_equal = bool(torch.equal(ua, ub))
+    ok = (tuple(a.shape) == tuple(x.shape) and bool(torch.isfinite(a).all())
+          and diff <= CPU_ATOL and units_equal
+          and ub.shape[-1] == x.shape[-1] // stride)
+    row = {"phase": "f0vq", "config": "f0_vqvae.json",
+           "f0_frames": x.shape[-1], "units": ub.shape[-1],
+           "distinct_units": int(ub.unique().numel()),
+           "unit_margin_min": margin,
+           "reconstruction_card_vs_cpu_max_abs": diff,
+           "tolerance": CPU_ATOL, "units_equal": units_equal,
+           "commit_card": ca[0].item(), "commit_cpu": cb[0].item(),
+           "ms_per_call": ms, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("f0-VQ-VAE check failed")
+    return row
+
+
+def phase_content_vq(torch) -> dict:
+    """`vocode codes` and the CodeGenerator's content-VQ forward (from
+    integer units and from a waveform) from a reference-layout `g_*`, at
+    CONTENT_VQ's geometry: the card against the CPU, units equal (the
+    codes files equal), waveforms atol 1e-4; K2's launches per forward."""
+    import tempfile
+    from speech_inpainting_torch.cli import vocode
+    from speech_inpainting_torch.convert.from_jax import codegen_from_jax
+    from speech_inpainting_torch.convert.ida_torch import (
+        load_code_generator_checkpoint)
+    from speech_inpainting_torch.device import full_f32
+    from speech_inpainting_torch.models.codegen import CodeGeneratorConfig
+    from speech_inpainting_torch.ops.resblock import fused_resblock_step
+    from speech_inpainting_torch.testing import (code_generator_state_dict,
+                                                 codegen_tree,
+                                                 synthetic_utterance)
+    cfg = CodeGeneratorConfig.from_dict(CONTENT_VQ)
+    rng = np.random.default_rng(SEED + 120)
+    params, vq = codegen_tree(cfg, rng)
+    wavs = [0.5 * synthetic_utterance(rng, 1.0) for _ in range(2)]
+    # the codebook: content-encoder outputs of the first wav, spread (N(0,
+    # 1) rows send nearly every frame to one code)
+    with torch.inference_mode():
+        h = codegen_from_jax(cfg, params, vq, device="cpu").code_encoder(
+            torch.as_tensor(np.stack(wavs))[:, None])[0]
+    vq["code_vq"]["level_0"]["k"] = _spread_rows(h[0].t().numpy(),
+                                                 cfg.code_vq_bins)
+    margin = _unit_margin(torch, h.transpose(1, 2).reshape(-1, h.shape[1]),
+                          vq["code_vq"]["level_0"]["k"])
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        (d / "cfg.json").write_text(json.dumps(CONTENT_VQ))
+        torch.save({"generator": code_generator_state_dict(params, vq, cfg)},
+                   d / "g_00100000")
+        for i, w in enumerate(wavs):
+            _write_wav(d / f"utt{i}.wav", w, 16000)
+        (d / "list.txt").write_text("".join(
+            f"{d / f'utt{i}.wav'}\n" for i in range(2)))
+        codes = {}
+        for dev in ("cuda", "cpu"):
+            vocode.main(["codes", "--config", str(d / "cfg.json"),
+                         "--checkpoint", str(d / "g_00100000"), "--manifest",
+                         str(d / "list.txt"), "--out",
+                         str(d / f"codes_{dev}.txt"), "--device", dev])
+            codes[dev] = (d / f"codes_{dev}.txt").read_text()
+        card, cpu = (load_code_generator_checkpoint(d / "g_00100000", cfg,
+                                                    device=dev)
+                     for dev in ("cuda", "cpu"))
+    x = torch.as_tensor(wavs[0])[None, None]
+    with torch.inference_mode(), full_f32():
+        fused_resblock_step.launches = 0
+        wa, commit_a, _ = card(x.cuda())
+        torch.cuda.synchronize()
+        launches = fused_resblock_step.launches
+        wb, commit_b, _ = cpu(x)
+        ua, ub = card.encode_codes(x.cuda()).cpu(), cpu.encode_codes(x)
+        ia, ib = card(ub.cuda())[0].cpu(), cpu(ub)[0]
+    wave_diff = (wa.cpu() - wb).abs().max().item()
+    unit_diff = (ia - ib).abs().max().item()
+    units_equal = bool(torch.equal(ua, ub)) and codes["cuda"] == codes["cpu"]
+    n = 2 * len(cfg.hifigan.upsample_rates) * sum(
+        len(r) for r in cfg.hifigan.resblock_dilation_sizes)
+    ok = (units_equal and wave_diff <= CPU_ATOL and unit_diff <= CPU_ATOL
+          and launches == n and len(codes["cuda"].splitlines()) == 2
+          and wb.std().item() > 0.01)
+    row = {"phase": "content_vq", "geometry": "tests/test_codegen.py:144-160,"
+           " generator 64 wide", "units": ub.shape[-1],
+           "distinct_units": int(ub.unique().numel()),
+           "unit_margin_min": margin, "units_equal": units_equal,
+           "waveform_card_vs_cpu_max_abs": wave_diff,
+           "from_units_card_vs_cpu_max_abs": unit_diff,
+           "commit_card": commit_a.item(), "commit_cpu": commit_b.item(),
+           "tolerance": CPU_ATOL, "launches": launches,
+           "expected_launches": n, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("content-VQ check failed")
+    return {"launches": launches, "row": row}
+
+
+def phase_kmeans_fit(torch) -> dict:
+    """`fit_kmeans` at the I_da codebook's shape: k = 100 over 200 000 ×
+    768 float32 rows (0.61 GB, 100 clusters drawn on the card), 50 Lloyd
+    iterations, n_init 3: seconds and inertia. Then on the first 20 000
+    rows, from one shared start (one row of each cluster, so no cluster
+    dies and no random restart is drawn) and 10 iterations, the card's
+    `_lloyd` against the CPU's: inertia rel 1e-5, at most 0.1% of labels
+    different."""
+    from speech_inpainting_torch.device import full_f32
+    from speech_inpainting_torch.quantize.kmeans import (_lloyd, assign,
+                                                         fit_kmeans)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 130)
+    centers = torch.randn(KMEANS_K, KMEANS_DIM, generator=gen, device="cuda")
+    labels = torch.arange(KMEANS_ROWS, device="cuda") % KMEANS_K
+    x = centers[labels] + 0.5 * torch.randn(KMEANS_ROWS, KMEANS_DIM,
+                                            generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    C, inertia = fit_kmeans(x, KMEANS_K, iters=50, n_init=3, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    recovered = int(assign(centers, C).unique().numel())
+    sub, chunk = x[:20000], 5000
+    init = sub[:KMEANS_K]
+    with full_f32():
+        Ca, ia = _lloyd(gen, sub, init, 10, chunk)
+        Cb, ib = _lloyd(torch.Generator(), sub.cpu(), init.cpu(), 10, chunk)
+        la, lb = assign(sub, Ca).cpu(), assign(sub.cpu(), Cb)
+    rel = abs(float(ia) - float(ib)) / float(ib)
+    differ = (la != lb).float().mean().item()
+    ok = (tuple(C.shape) == (KMEANS_K, KMEANS_DIM)
+          and bool(torch.isfinite(C).all()) and np.isfinite(inertia)
+          and rel <= 1e-5 and differ <= 1e-3)
+    row = {"phase": "kmeans_fit", "rows": KMEANS_ROWS, "dim": KMEANS_DIM,
+           "k": KMEANS_K, "iters": 50, "n_init": 3, "seconds": seconds,
+           "inertia": inertia, "noise_floor_inertia": 0.25 * KMEANS_DIM,
+           "clusters_recovered": recovered,
+           "lloyd_card_vs_cpu_inertia_rel": rel,
+           "lloyd_card_vs_cpu_labels_differ": differ,
+           "lloyd_card_vs_cpu_centroids_max_abs":
+               (Ca.cpu() - Cb).abs().max().item(), "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("k-means fitting check failed")
+    return row
+
+
 def control_unpinned(torch) -> int:
     """The control of `default_flags` (`--unpinned`): the entry points'
     pinning (`device.full_f32`) is made a no-op before they are imported,
@@ -1462,10 +2030,19 @@ def main() -> int:
     cli = phase_cli(torch, large)
     large_launches = large["launches"]
     del large
+    ida_cli = phase_ida_cli(torch, ida)
+    voc = phase_vocode(torch)
+    phase_v3(torch)
+    phase_f0vq(torch)
+    cvq = phase_content_vq(torch)
+    phase_kmeans_fit(torch)
     taken = {"I_ea": _plan_tiles(4, path["T"], path["kernel_sizes"],
                                  path["dilations"]),
              "I_da": _plan_tiles(1, ida["T"], ida["kernel_sizes"],
-                                 ida["dilations"])}
+                                 ida["dilations"]),
+             "vocode": _plan_tiles(1, voc["path"]["T"],
+                                   voc["path"]["kernel_sizes"],
+                                   voc["path"]["dilations"])}
     emit({"phase": "spills", "instantiations": [
         {**r, "taken_by": [name for name, tiles in taken.items()
                            if (r["co_tile"], r["t_tile"], r["K"]) in tiles]}
@@ -1511,9 +2088,23 @@ def main() -> int:
         "source": "speech_inpainting_torch/csrc/resblock1.cu",
         "replaces": "speech_inpainting_tpu/ops/pallas_resblock.py:126",
         "launches": ida["launches"],
+        # K2's launches on each path's run (counts set to 0 just before):
+        # one I_da utterance (two vocoder calls), the inpaint_da CLI per
+        # utterance per mask, one V1 forward of the vocode CLI (wav2wav,
+        # --quantize-mel and mel2wav alike), one content-VQ forward
+        "launches_by_path": {
+            "I_da_utterance": ida["launches"],
+            "inpaint_da_cli_per_utterance_per_mask":
+                ida_cli["launches_per_utterance_per_mask"],
+            "vocode_v1_forward": voc["launches_per_forward"],
+            "content_vq_forward": cvq["launches"]},
+        # the worst over the I_da generator's 45 step shapes, V1's 36 at
+        # the vocode CLI's lengths, and the edge shapes
         "max_abs_err": max(ida_errs["f32_max_abs_err"],
+                           voc["kernel_check"]["f32_max_abs_err"],
                            edge["K2"]["f32_max_abs_err"]),
         "bf16_rel_err": max(ida_errs["bf16_rel_err"],
+                            voc["kernel_check"]["bf16_rel_err"],
                             edge["K2"]["bf16_rel_err"]),
         "ms": t2["ms"], "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
         "bound_by": t2["bound_by"], "library_ms": t2["library_ms"],

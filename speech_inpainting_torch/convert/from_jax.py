@@ -18,7 +18,8 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..models.codegen import CodeGenerator, CodeGeneratorConfig
+from ..models.codegen import (CodeGenerator, CodeGeneratorConfig, FoVQVAE,
+                              FoVQVAEConfig)
 from ..models.hifigan import Generator, HiFiGANConfig
 from ..models.hifigan_fast import FastGenerator
 from ..models.hifigan_istft import ISTFTGenerator, ISTFTGeneratorConfig
@@ -40,30 +41,32 @@ def _load_conv(conv: nn.Module, p: dict) -> None:
 
 
 def _load_generator(gen: Generator, params: dict) -> None:
-    """`Generator` tree (conv_pre, ups_{i}, resblocks_{i}_{j}/convs{1,2}_{s},
-    conv_post, each {v, g, b}) → `gen`, weight norm folded."""
+    """`Generator` tree (conv_pre, ups_{i}, resblocks_{i}_{j}/convs{1,2}_{s}
+    for ResBlock1 or convs_{s} for ResBlock2, conv_post, each {v, g, b}) →
+    `gen`, weight norm folded."""
     cfg = gen.cfg
     _load_conv(gen.conv_pre, params["conv_pre"])
     _load_conv(gen.conv_post, params["conv_post"])
     nk = len(cfg.resblock_kernel_sizes)
+    names = ("1", "2") if cfg.resblock == "1" else ("",)
     for i, up in enumerate(gen.ups):
         _load_conv(up, params[f"ups_{i}"])
         for j, rd in enumerate(cfg.resblock_dilation_sizes):
             blk = params[f"resblocks_{i}_{j}"]
             dst = gen.resblocks[i * nk + j]
-            for n in ("1", "2"):
+            for n in names:
                 convs = [blk[f"convs{n}_{s}"] for s in range(len(rd))]
                 dst["w" + n].copy_(torch.stack([_fold(c) for c in convs]))
                 dst["b" + n].copy_(torch.stack([_t(c["b"]) for c in convs]))
 
 
 @torch.no_grad()
-def generator_from_jax(cfg: HiFiGANConfig, params: dict,
-                       device=None) -> FastGenerator:
-    """`Generator` tree → FastGenerator (ResBlock1s in K1) in cfg.dtype on
-    `device`."""
+def generator_from_jax(cfg: HiFiGANConfig, params: dict, device=None,
+                       cls: type = FastGenerator) -> Generator:
+    """`Generator` tree → `cls` in cfg.dtype on `device`: FastGenerator
+    (ResBlock1s in K1), or `Generator` (in K2, one launch pair per step)."""
     device = resolve_device(device)
-    gen = FastGenerator(cfg)
+    gen = cls(cfg)
     _load_generator(gen, params)
     return gen.to(device=device, dtype=cfg.dtype)
 
@@ -100,7 +103,8 @@ def _load_hubert(enc: HubertModel, hp: dict, dtype: torch.dtype) -> None:
             conv.bias.copy_(_t(fe[f"conv_{i}_b"]))
     for name, norm in enc.feature_extractor.norms.items():
         _load_norm(norm, fe[name])
-    _load_norm(enc.fp_layer_norm, hp["fp_layer_norm"])
+    if "fp_layer_norm" in hp:
+        _load_norm(enc.fp_layer_norm, hp["fp_layer_norm"])
     _load_dense(enc.fp_projection, hp["fp_projection"])
     pc = hp["pos_conv_embed"]
     v = _t(pc["conv_v"])
@@ -164,21 +168,39 @@ def _load_plain(module: nn.Module, tree: dict) -> None:
             _load_plain(dst, sub)
 
 
+def _load_codebooks(bottleneck: nn.Module, vq_tree: dict) -> None:
+    """A `vq` collection's levels (level_{i}/k) → the Bottleneck's `k`."""
+    for name, level in vq_tree.items():
+        getattr(bottleneck, name).k.copy_(_t(level["k"]))
+
+
+@torch.no_grad()
+def fo_vqvae_from_jax(cfg: FoVQVAEConfig, params: dict, vq_tree: dict,
+                      device=None) -> FoVQVAE:
+    """`FoVQVAE` params (encoder, decoder) and its `vq` collection
+    (vq/level_{i}/k) → FoVQVAE in float32 on `device`."""
+    device = resolve_device(device)
+    model = FoVQVAE(cfg)
+    _load_plain(model, params)
+    _load_codebooks(model.vq, vq_tree["vq"])
+    return model.requires_grad_(False).to(device)
+
+
 @torch.no_grad()
 def codegen_from_jax(cfg: CodeGeneratorConfig, params: dict, vq_tree: dict,
                      device=None) -> CodeGenerator:
-    """`CodeGenerator` params (emb_c, emb_p, emb_s, fo_vqvae/encoder,
-    generator) and its `vq` collection (fo_vqvae/vq/level_{i}/k) →
+    """`CodeGenerator` params (emb_c or code_encoder, emb_p, emb_s,
+    fo_vqvae/encoder (and decoder, where the tree has it), generator) and
+    its `vq` collection (code_vq/level_0/k, fo_vqvae/vq/level_{i}/k) →
     CodeGenerator on `device`: the generator in cfg.hifigan.dtype with
-    weight norm folded, the embeddings and the f0-VQ encoder in float32."""
+    weight norm folded, the rest in float32."""
     device = resolve_device(device)
     model = CodeGenerator(cfg)
-    _load_plain(model, {k: v for k, v in params.items()
-                        if k not in ("generator", "fo_vqvae")})
+    _load_plain(model, {k: v for k, v in params.items() if k != "generator"})
+    if cfg.content_vq:
+        _load_codebooks(model.code_vq, vq_tree["code_vq"])
     if cfg.use_f0:
-        _load_plain(model.fo_vqvae.encoder, params["fo_vqvae"]["encoder"])
-        for name, level in vq_tree["fo_vqvae"]["vq"].items():
-            getattr(model.fo_vqvae.vq, name).k.copy_(_t(level["k"]))
+        _load_codebooks(model.fo_vqvae.vq, vq_tree["fo_vqvae"]["vq"])
     _load_generator(model.generator, params["generator"])
     model.to(device)
     model.generator.to(cfg.hifigan.dtype)

@@ -1,7 +1,7 @@
 """Host-side wav I/O and resampling with numpy and scipy: the port's own
-copy of speech_inpainting_tpu/data/audio.py's `load_wav`, `save_wav` and
-`resample` (that module needs no JAX, but the port imports nothing of the
-JAX package).
+copy of speech_inpainting_tpu/data/audio.py's `load_wav`, `save_wav`,
+`wav_info`, `resample` and `peak_normalize` (that module needs no JAX, but
+the port imports nothing of the JAX package).
   - load_wav → float32 mono in [-1, 1] (int16 / 32768, the reference's
     convention), resampled on request;
   - save_wav writes int16 at ±(32768 − 1), clipping to [-1, 1];
@@ -48,6 +48,12 @@ def save_wav(path, wav, sr: int) -> None:
     wavfile.write(str(path), sr, wav)
 
 
+def wav_info(path) -> Tuple[int, int]:
+    """(sample_rate, frames) without decoding the payload."""
+    sr, data = wavfile.read(str(path), mmap=True)
+    return sr, data.shape[0]
+
+
 def resample(wav: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
     """Polyphase resampling (kaiser-windowed)."""
     if sr == target_sr:
@@ -55,3 +61,9 @@ def resample(wav: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
     frac = Fraction(target_sr, sr)
     return resample_poly(wav, frac.numerator, frac.denominator).astype(
         np.float32)
+
+
+def peak_normalize(wav: np.ndarray, level: float = 0.95) -> np.ndarray:
+    """Scale to a peak of `level`; silence is returned as it is."""
+    peak = np.abs(wav).max()
+    return wav * (level / peak) if peak > 0 else wav

@@ -42,24 +42,34 @@ def _peak_norm(x: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
 
 class IdaInpainter:
     """codegen_params / vq_tree / hubert_params: the JAX package's trees
-    (numpy); centroids (K, hidden) k-means codebook over the tapped layer.
-    Runs on the CUDA card unless `device="cpu"` is passed."""
+    (numpy), or None where the loaded module is passed instead as
+    `codegen=` (a CodeGenerator, e.g. from convert/ida_torch.py) or
+    `hubert=` (a HubertModel, e.g. from convert/hubert_torch.py);
+    centroids (K, hidden) k-means codebook over the tapped layer. Runs on
+    the CUDA card unless `device="cpu"` is passed."""
 
     def __init__(self, codegen_cfg: CodeGeneratorConfig, codegen_params,
                  vq_tree, hubert_cfg: HubertConfig, hubert_params,
                  centroids, *, tap_layer: Optional[int] = None,
                  f0_cfg: F0Config = F0Config(), code_hop: int = 320,
-                 device=None):
+                 codegen=None, hubert=None, device=None):
         self.cfg = codegen_cfg
         self.hubert_cfg = hubert_cfg
         self.tap_layer = tap_layer
         self.f0_cfg = f0_cfg
         self.code_hop = code_hop
         self.device = resolve_device(device)
-        self.codegen = codegen_from_jax(codegen_cfg, codegen_params, vq_tree,
-                                        device=self.device)
-        self.hubert = hubert_model_from_jax(hubert_cfg, hubert_params,
-                                            device=self.device)
+        for name, tree, module in (("codegen", codegen_params, codegen),
+                                   ("hubert", hubert_params, hubert)):
+            if (tree is None) == (module is None):
+                raise ValueError(f"pass either {name}_params or the loaded "
+                                 f"`{name}=` module, not both or neither")
+        self.codegen = (codegen.to(self.device) if codegen is not None
+                        else codegen_from_jax(codegen_cfg, codegen_params,
+                                              vq_tree, device=self.device))
+        self.hubert = (hubert.to(self.device) if hubert is not None
+                       else hubert_model_from_jax(hubert_cfg, hubert_params,
+                                                  device=self.device))
         self.centroids = torch.as_tensor(centroids, dtype=torch.float32,
                                          device=self.device)
 

@@ -1,17 +1,20 @@
 """The I_da unit-conditioned vocoder: CodeGenerator over content units,
 f0-VQ pitch units and a speaker embedding.
 
-Counterpart of speech_inpainting_tpu/models/codegen.py, for inference in the
-unit-lookup regime:
-  - FoVQVAE.encode_units: jukebox Encoder → VQ Bottleneck over an f0 series
-    (1 channel, 5 ms hop) → pitch units (the Decoder is not ported yet);
-  - CodeGenerator: content-unit Embedding, pitch-unit Embedding, speaker as an
-    external d-vector or an Embedding table, each repeat-upsampled to the
-    longest stream, channel concat (model_in_dim) → HiFi-GAN `Generator`,
-    whose ResBlock1s run in K2 on the card.
+Counterpart of speech_inpainting_tpu/models/codegen.py, for inference:
+  - FoVQVAE: jukebox Encoder → VQ Bottleneck → jukebox Decoder over an f0
+    series (1 channel, 5 ms hop); `encode_units` stops at the pitch units;
+  - CodeGenerator, unit-lookup regime: content-unit Embedding, pitch-unit
+    Embedding, speaker as an external d-vector or an Embedding table, each
+    repeat-upsampled to the longest stream, channel concat (model_in_dim) →
+    HiFi-GAN `Generator`, whose ResBlock1s run in K2 on the card;
+  - CodeGenerator, content-VQ regime (the reference's lambda_commit_code):
+    a jukebox Encoder and a one-level VQ replace the unit Embedding; integer
+    units dequantize through its codebook, a waveform goes through both,
+    and the forward returns (wav, commit, metrics).
 The flax `Embed` tables there are `nn.Embedding` here (`weight`
-(num_embeddings, features), copied unchanged). The content-VQ regime (the
-reference's lambda_commit_code) raises NotImplementedError.
+(num_embeddings, features), copied unchanged). The VQ's training side
+(EMA update, restarts) is not ported.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from torch import nn
 
 from ..quantize.vq import Bottleneck
 from .hifigan import Generator, HiFiGANConfig
-from .jukebox import ConvStackConfig, Encoder
+from .jukebox import ConvStackConfig, Decoder, Encoder
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,13 +49,21 @@ class FoVQVAEConfig:
 
 
 class FoVQVAE(nn.Module):
-    """The f0-VQ-VAE's encoder side: f0 (B, 1, T) → pitch units."""
+    """f0 (B, 1, T) → (reconstruction, commit terms, metrics), eval side;
+    `encode_units` is the CodeGenerator's tap, which needs no decoder."""
 
     def __init__(self, cfg: FoVQVAEConfig):
         super().__init__()
         self.cfg = cfg
         self.encoder = Encoder(cfg.encoder)
         self.vq = Bottleneck(cfg.levels, cfg.l_bins, cfg.emb_width)
+        self.decoder = Decoder(cfg.decoder)
+
+    def forward(self, f0: torch.Tensor, *, train: bool = False):
+        """f0 (B, 1, T) → (reconstruction (B, 1, T), per-level commit
+        terms, per-level metrics)."""
+        _, h_q, commits, metrics = self.vq(self.encoder(f0), train=train)
+        return self.decoder(h_q), commits, metrics
 
     def encode_units(self, f0: torch.Tensor) -> torch.Tensor:
         """f0 (B, 1, T) → discrete pitch units (B, T/total_stride)."""
@@ -69,10 +80,20 @@ class CodeGeneratorConfig:
     spk_embeddings: int = 200          # Embedding-table speaker path
     external_speaker_emb: bool = True  # d-vector `emb` input vs `spkr` ids
     f0_quantizer: Optional[FoVQVAEConfig] = None
-    content_vq: bool = False           # reference h.lambda_commit_code
+    # content-VQ regime (reference h.lambda_commit_code truthy,
+    # model.py:54-59): a content encoder and codebook replace emb_c
+    code_encoder: Optional[ConvStackConfig] = None
+    code_vq_bins: int = 100
+    code_vq_width: int = 128
+    code_vq_mu: float = 0.99
+
+    @property
+    def content_vq(self) -> bool:
+        return self.code_encoder is not None
 
     @staticmethod
     def from_dict(h: dict) -> "CodeGeneratorConfig":
+        vq = h.get("code_vq_params") or {}
         return CodeGeneratorConfig(
             hifigan=HiFiGANConfig.from_dict(h),
             num_embeddings=h["num_embeddings"],
@@ -81,7 +102,11 @@ class CodeGeneratorConfig:
             use_f0=bool(h.get("f0_stats")),
             f0_quantizer=(FoVQVAEConfig.from_dict(h["f0_quantizer"])
                           if h.get("f0_quantizer") else None),
-            content_vq=bool(h.get("lambda_commit_code")))
+            code_encoder=(ConvStackConfig.from_dict(h["code_encoder_params"])
+                          if h.get("lambda_commit_code") else None),
+            code_vq_bins=vq.get("l_bins", 100),
+            code_vq_width=vq.get("emb_width", 128),
+            code_vq_mu=vq.get("mu", 0.99))
 
 
 def repeat_upsample(signal: torch.Tensor, max_frames: int) -> torch.Tensor:
@@ -100,15 +125,17 @@ def repeat_upsample(signal: torch.Tensor, max_frames: int) -> torch.Tensor:
 
 
 class CodeGenerator(nn.Module):
-    """(code, f0, emb | spkr) → waveform (B, 1, frames·∏upsample_rates)."""
+    """(code, f0, emb | spkr) → waveform (B, 1, frames·∏upsample_rates);
+    in the content-VQ regime (code, emb) → (waveform, commit, metrics)."""
 
     def __init__(self, cfg: CodeGeneratorConfig):
         super().__init__()
-        if cfg.content_vq:
-            raise NotImplementedError(
-                "the content-VQ regime (lambda_commit_code) is not ported")
         self.cfg = cfg
-        self.emb_c = nn.Embedding(cfg.num_embeddings, cfg.embedding_dim)
+        if cfg.content_vq:
+            self.code_encoder = Encoder(cfg.code_encoder)
+            self.code_vq = Bottleneck(1, cfg.code_vq_bins, cfg.code_vq_width)
+        else:
+            self.emb_c = nn.Embedding(cfg.num_embeddings, cfg.embedding_dim)
         if cfg.use_f0:
             if cfg.f0_quantizer is None:
                 raise NotImplementedError(
@@ -121,10 +148,32 @@ class CodeGenerator(nn.Module):
         self.generator = Generator(cfg.hifigan)
         self.requires_grad_(False)
 
+    def encode_codes(self, x: torch.Tensor) -> torch.Tensor:
+        """Waveform/features (B, C, T) → content units (B, frames) through
+        the learned content VQ (the reference's infer_vqvae_codes)."""
+        return self.code_vq.encode(self.code_encoder(x))[0]
+
+    def _content_vq(self, code: torch.Tensor):
+        """Integer units dequantize through the codebook (no commit term);
+        continuous input runs the encoder and the VQ (model.py:134-141)."""
+        if not code.is_floating_point():
+            return self.code_vq.level_0.decode(code), None, {}
+        _, h_q, commits, metrics = self.code_vq(self.code_encoder(code))
+        return h_q[0], commits[0], metrics[0]
+
     def forward(self, code, f0=None, emb=None, spkr=None):
-        """code (B, F) int; f0 (B, 1, Ff) float; emb (B, E) float d-vector
-        or spkr (B,)/(B, 1) int ids."""
+        """code (B, F) int, or in the content-VQ regime (B, F) int or
+        (B, C, T) float; f0 (B, 1, Ff) float; emb (B, E) float d-vector or
+        spkr (B,)/(B, 1) int ids."""
         cfg = self.cfg
+        if cfg.content_vq:
+            # returns early, any d-vector concatenated (model.py:173-185;
+            # these configs run without the f0 and speaker-table paths)
+            feats, commit, metrics = self._content_vq(code)
+            if emb is not None:
+                feats = torch.cat(
+                    [feats, repeat_upsample(emb, feats.shape[-1])], dim=1)
+            return self.generator(feats), commit, metrics
         feats = emb_c = self.emb_c(code).transpose(1, 2)      # (B, D, F)
         if cfg.use_f0:
             z_p = self.fo_vqvae.encode_units(f0)

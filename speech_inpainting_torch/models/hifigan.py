@@ -7,9 +7,9 @@ norm is folded once, when the weights are loaded (convert/from_jax.py), as
 the reference's remove_weight_norm does. `Generator` sends each ResBlock1
 through `ops.resblock.resblock1_forward`, one K2 kernel launch per residual
 step when the generator lies on the card; models/hifigan_fast.py's
-`FastGenerator` overrides only that call, for K1. The other convs are
-torch's. Only ResBlock1 generators (V1, V2, the I_da unit vocoder) are ported
-so far.
+`FastGenerator` overrides only that call, for K1. ResBlock2 (config V3: two
+steps of lrelu → dilated conv → residual) has no Pallas kernel in the JAX
+package, so its convs are torch's, as are the others.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv import get_padding
 from ..ops.resblock import resblock1_forward, resblock1_reference
 
 LRELU_SLOPE = 0.1
@@ -60,20 +61,33 @@ class HiFiGANConfig:
         )
 
 
+def resblock2(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              dilations=(1, 3)) -> torch.Tensor:
+    """ResBlock2 over folded weights w (S, C, C, K), b (S, C): for each
+    dilation d, x ← x + conv_d(lrelu(x)), "same" padding, slope 0.1."""
+    K = w.shape[-1]
+    for s, d in enumerate(dilations):
+        xt = F.conv1d(F.leaky_relu(x, LRELU_SLOPE), w[s], b[s],
+                      padding=get_padding(K, d), dilation=d)
+        x = xt + x
+    return x
+
+
 class Generator(nn.Module):
     """mel/features (B, in_dim, F) → waveform (B, 1, F·∏upsample_rates).
 
     Parameters hold the folded kernels in the torch layouts: `conv_pre`,
     `ups[i]`, `conv_post` as Conv1d/ConvTranspose1d modules and, per
     ResBlock1, `resblocks[i·nk + j]` with w1, w2 (S, C, C, K) and b1, b2
-    (S, C). `use_kernel = False` routes the ResBlock1s through the plain
-    version instead, for holding the kernel path against it.
+    (S, C); per ResBlock2, w (S, C, C, K) and b (S, C). `use_kernel =
+    False` routes the ResBlock1s through the plain version instead, for
+    holding the kernel path against it.
     """
 
     def __init__(self, cfg: HiFiGANConfig):
         super().__init__()
-        if cfg.resblock != "1":
-            raise NotImplementedError("only ResBlock1 generators are ported")
+        if cfg.resblock not in ("1", "2"):
+            raise ValueError(f"resblock {cfg.resblock!r} is neither 1 nor 2")
         self.cfg = cfg
         self.use_kernel = True
         c0 = cfg.upsample_initial_channel
@@ -88,12 +102,11 @@ class Generator(nn.Module):
             for rk, rd in zip(cfg.resblock_kernel_sizes,
                               cfg.resblock_dilation_sizes):
                 s = len(rd)
+                names = ("1", "2") if cfg.resblock == "1" else ("",)
                 self.resblocks.append(nn.ParameterDict({
-                    "w1": nn.Parameter(torch.empty(s, ch, ch, rk)),
-                    "b1": nn.Parameter(torch.empty(s, ch)),
-                    "w2": nn.Parameter(torch.empty(s, ch, ch, rk)),
-                    "b2": nn.Parameter(torch.empty(s, ch)),
-                }))
+                    k + n: nn.Parameter(torch.empty(*shape))
+                    for n in names for k, shape in (
+                        ("w", (s, ch, ch, rk)), ("b", (s, ch)))}))
         self.conv_post = nn.Conv1d(c0 // 2 ** len(cfg.upsample_rates), 1, 7,
                                    padding=3)
         self.requires_grad_(False)
@@ -116,7 +129,9 @@ class Generator(nn.Module):
             x = up(F.leaky_relu(x, LRELU_SLOPE))
             xs = None
             for j, rd in enumerate(cfg.resblock_dilation_sizes):
-                out = self.resblock(x, self.resblocks[i * nk + j], tuple(rd))
+                p = self.resblocks[i * nk + j]
+                out = (self.resblock(x, p, tuple(rd)) if cfg.resblock == "1"
+                       else resblock2(x, p["w"], p["b"], tuple(rd)))
                 xs = out if xs is None else xs + out
             x = xs / nk
         return F.leaky_relu(x, 0.01)  # torch's default slope

@@ -41,6 +41,7 @@ class HubertConfig:
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
     layer_norm_eps: float = 1e-5
+    feat_proj_layer_norm: bool = True
     dtype: torch.dtype = torch.float32
 
     @staticmethod
@@ -54,6 +55,24 @@ class HubertConfig:
                  intermediate_size=4096, do_stable_layer_norm=True)
         d.update(over)
         return HubertConfig(**d)
+
+    @staticmethod
+    def from_hf(c: dict) -> "HubertConfig":
+        """The fields of an HF `config.json` (transformers' HubertConfig
+        as a dict), `feat_proj_layer_norm` true where it is absent."""
+        return HubertConfig(
+            conv_dim=tuple(c["conv_dim"]), conv_stride=tuple(c["conv_stride"]),
+            conv_kernel=tuple(c["conv_kernel"]), conv_bias=c["conv_bias"],
+            feat_extract_norm=c["feat_extract_norm"],
+            hidden_size=c["hidden_size"],
+            num_hidden_layers=c["num_hidden_layers"],
+            num_attention_heads=c["num_attention_heads"],
+            intermediate_size=c["intermediate_size"],
+            do_stable_layer_norm=c["do_stable_layer_norm"],
+            num_conv_pos_embeddings=c["num_conv_pos_embeddings"],
+            num_conv_pos_embedding_groups=c["num_conv_pos_embedding_groups"],
+            layer_norm_eps=c["layer_norm_eps"],
+            feat_proj_layer_norm=c.get("feat_proj_layer_norm", True))
 
 
 class LayerNorm32(nn.LayerNorm):
@@ -185,8 +204,9 @@ class HubertModel(nn.Module):
         super().__init__()
         self.pre_ln = cfg.do_stable_layer_norm
         self.feature_extractor = FeatureEncoder(cfg)
-        self.fp_layer_norm = LayerNorm32(cfg.conv_dim[-1],
-                                         eps=cfg.layer_norm_eps)
+        self.fp_layer_norm = (LayerNorm32(cfg.conv_dim[-1],
+                                          eps=cfg.layer_norm_eps)
+                              if cfg.feat_proj_layer_norm else nn.Identity())
         self.fp_projection = Dense(cfg.conv_dim[-1], cfg.hidden_size)
         self.pos_conv_embed = PositionalConvEmbedding(cfg)
         self.encoder_layer_norm = LayerNorm32(cfg.hidden_size,

@@ -1,15 +1,18 @@
-"""Jukebox-style strided conv Encoder with dilated Resnet1D blocks.
+"""Jukebox-style strided conv Encoder/Decoder with dilated Resnet1D blocks.
 
-Counterpart of speech_inpainting_tpu/models/jukebox.py, encoder side (the
-f0-VQ-VAE's Decoder is not ported yet):
+Counterpart of speech_inpainting_tpu/models/jukebox.py:
   Encoder level: [Conv1d(k=2s|2s+1, stride s) + Resnet1D]×down_t
                  + Conv1d(3,1,1)
+  Decoder level: Conv1d(3,1,1) + [Resnet1D + ConvTranspose1d(k=2s|2s+1,
+                 stride s)]×down_t, levels added to the next one's latent
   Resnet1D block: x + scale·[ReLU → Conv1d(k3, dilation d) → ReLU → Conv1d(k1)]
-with dilation d = growth_rate^depth (optionally cycled). Submodules keep the
-flax names (level_{l}, down_{i}_conv, down_{i}_resnet, block_{j}, conv3,
-conv1, proj) so that convert/from_jax.py maps a tree onto them by name.
-The flax `TorchConv1d` there keeps torch's layout, so it is `nn.Conv1d` here
-(w (O, I, K) → weight, b → bias, copied unchanged).
+with dilation d = growth_rate^depth (optionally cycled; the decoder's order
+optionally reversed). Submodules keep the flax names (level_{l},
+down_{i}_conv, down_{i}_resnet, up_{i}_resnet, up_{i}_convt, block_{j},
+conv3, conv1, proj, out) so that convert/from_jax.py maps a tree onto them
+by name. The flax `TorchConv1d` and `TorchConvTranspose1d` there keep
+torch's layouts, so they are `nn.Conv1d` and `nn.ConvTranspose1d` here
+(w → weight, b → bias, copied unchanged).
 """
 from __future__ import annotations
 
@@ -70,12 +73,13 @@ class ResConv1DBlock(nn.Module):
 
 
 class Resnet1D(nn.Module):
-    """`block_{i}` has dilation growth_rate^(i, or i mod cycle)."""
+    """`block_{i}` has dilation growth_rate^(i, or i mod cycle); with
+    `reverse_dilation` the blocks run last to first."""
 
     def __init__(self, n_in: int, n_depth: int, m_conv: float = 1.0,
                  dilation_growth_rate: int = 1,
                  dilation_cycle: Optional[int] = None,
-                 res_scale: bool = False):
+                 res_scale: bool = False, reverse_dilation: bool = False):
         super().__init__()
         scale = 1.0 / math.sqrt(n_depth) if res_scale else 1.0
         for i in range(n_depth):
@@ -83,9 +87,11 @@ class Resnet1D(nn.Module):
             self.add_module(f"block_{i}", ResConv1DBlock(
                 n_in, int(m_conv * n_in), dilation_growth_rate ** depth,
                 scale))
+        self.reverse_dilation = reverse_dilation
 
     def forward(self, x):
-        for block in self.children():
+        blocks = list(self.children())
+        for block in blocks[::-1] if self.reverse_dilation else blocks:
             x = block(x)
         return x
 
@@ -120,6 +126,34 @@ class EncoderConvBlock(nn.Module):
         return self.proj(x)
 
 
+class DecoderConvBlock(nn.Module):
+    """Conv1d(3,1,1) + [Resnet1D + ConvTranspose1d]×down_t, one level: the
+    transposed convs (k = 2s or 2s+1, padding from `_filter_pad`) multiply
+    the length by stride_t each."""
+
+    def __init__(self, cfg: ConvStackConfig, in_width: int, out_width: int,
+                 down_t: int, stride_t: int):
+        super().__init__()
+        filt, pad = _filter_pad(stride_t)
+        self.down_t = down_t
+        self.proj = nn.Conv1d(in_width, cfg.width, 3, padding=1)
+        for i in range(down_t):
+            self.add_module(f"up_{i}_resnet", Resnet1D(
+                cfg.width, cfg.depth, cfg.m_conv, cfg.dilation_growth_rate,
+                cfg.dilation_cycle, cfg.res_scale,
+                cfg.reverse_decoder_dilation))
+            self.add_module(f"up_{i}_convt", nn.ConvTranspose1d(
+                cfg.width, out_width if i == down_t - 1 else cfg.width, filt,
+                stride=stride_t, padding=pad))
+
+    def forward(self, x):
+        x = self.proj(x)
+        for i in range(self.down_t):
+            x = getattr(self, f"up_{i}_resnet")(x)
+            x = getattr(self, f"up_{i}_convt")(x)
+        return x
+
+
 class Encoder(nn.Module):
     """(B, input_emb_width, T) → list of per-level (B, output_emb_width,
     T/total_stride)."""
@@ -138,3 +172,29 @@ class Encoder(nn.Module):
             x = level(x)
             xs.append(x)
         return xs
+
+
+class Decoder(nn.Module):
+    """List of per-level latents (B, output_emb_width, T_l) → (B,
+    input_emb_width, T): from the last level down, each level's block, then
+    (below the last) the next level's latent added, then Conv1d `out`."""
+
+    def __init__(self, cfg: ConvStackConfig):
+        super().__init__()
+        self.levels = cfg.levels
+        for level in range(cfg.levels):
+            self.add_module(f"level_{level}", DecoderConvBlock(
+                cfg, cfg.output_emb_width, cfg.output_emb_width,
+                cfg.downs_t[level], cfg.strides_t[level]))
+        self.out = nn.Conv1d(cfg.output_emb_width, cfg.input_emb_width, 3,
+                             padding=1)
+
+    def forward(self, xs) -> torch.Tensor:
+        if len(xs) != self.levels:
+            raise ValueError(f"{len(xs)} latents for {self.levels} levels")
+        x = xs[-1]
+        for level in reversed(range(self.levels)):
+            x = getattr(self, f"level_{level}")(x)
+            if level != 0:
+                x = x + xs[level - 1]
+        return self.out(x)

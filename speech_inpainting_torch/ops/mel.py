@@ -4,7 +4,8 @@ not a dependency) over the GEMM STFT, then log(clamp(·, 1e-5)).
 Presets:
   - VOCODER_MEL_22K: 22.05 kHz, n_fft 1024, hop 256, win 1024, pad 384;
   - HUBERT_ALIGNED_MEL_22K: the same at hop 441 (20 ms), pad 312, the frame
-    grid of HuBERT's 20 ms frames.
+    grid of HuBERT's 20 ms frames;
+  - VOCODER_MEL_16K: VOCODER_MEL_22K's geometry at 16 kHz (I_da).
 """
 from __future__ import annotations
 
@@ -98,6 +99,7 @@ class MelConfig:
 
 VOCODER_MEL_22K = MelConfig()
 HUBERT_ALIGNED_MEL_22K = MelConfig(hop_size=441, pad=312)
+VOCODER_MEL_16K = MelConfig(sampling_rate=16000)
 
 
 def mel_spectrogram(y: torch.Tensor,

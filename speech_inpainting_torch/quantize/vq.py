@@ -1,10 +1,11 @@
 """The EMA vector-quantization bottleneck, evaluation side.
 
-Counterpart of speech_inpainting_tpu/quantize/vq.py: nearest-code encoding
-and decoding over a codebook `k` (k_bins, emb_width) that comes from the JAX
-package's `vq` collection (convert/from_jax.py). The EMA codebook update,
-the dead-code restart and their cross-device sums belong to training and are
-not ported yet.
+Counterpart of speech_inpainting_tpu/quantize/vq.py: nearest-code encoding,
+decoding and the eval forward over a codebook `k` (k_bins, emb_width), a
+buffer filled from the JAX package's `vq` collection (convert/from_jax.py)
+or a reference checkpoint's `k` (convert/ida_torch.py). The EMA codebook
+update, the dead-code restart and their cross-device sums belong to
+training and are not ported yet: `forward(train=True)` raises.
 """
 from __future__ import annotations
 
@@ -16,6 +17,10 @@ from torch import nn
 from .kmeans import pairwise_sqdist
 
 
+def _prenorm(x: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(x - x.mean()) / x.numel() ** 0.5
+
+
 class EMAVectorQuantizer(nn.Module):
     """One BottleneckBlock: (N, C, T) ↔ labels (N, T)."""
 
@@ -24,16 +29,17 @@ class EMAVectorQuantizer(nn.Module):
         self.emb_width = emb_width
         self.register_buffer("k", torch.zeros(k_bins, emb_width))
 
-    def _preprocess(self, x: torch.Tensor) -> torch.Tensor:
-        """NCT → (N·T, C); a 2·emb_width input is the sum of its halves
-        (reference vq.py:99-106)."""
+    def _preprocess(self, x: torch.Tensor):
+        """NCT → ((N·T, C), prenorm); a 2·emb_width input is the sum of its
+        halves, its prenorm the sum of theirs (reference vq.py:99-106)."""
         x = x.transpose(1, 2).reshape(-1, x.shape[1])
         if x.shape[-1] == 2 * self.emb_width:
-            return x[:, :self.emb_width] + x[:, self.emb_width:]
+            x1, x2 = x[:, :self.emb_width], x[:, self.emb_width:]
+            return x1 + x2, _prenorm(x1) + _prenorm(x2)
         if x.shape[-1] != self.emb_width:
             raise ValueError(f"width {x.shape[-1]} != (1 or 2)*"
                              f"{self.emb_width}")
-        return x
+        return x, _prenorm(x)
 
     def quantise(self, x_flat: torch.Tensor):
         """Nearest codes (first of equal distances) and the mean distance."""
@@ -46,11 +52,29 @@ class EMAVectorQuantizer(nn.Module):
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         n, _, t = x.shape
-        labels, _ = self.quantise(self._preprocess(x))
+        labels, _ = self.quantise(self._preprocess(x)[0])
         return labels.reshape(n, t)
 
     def decode(self, labels: torch.Tensor) -> torch.Tensor:
         return self.dequantise(labels).transpose(1, 2)
+
+    def forward(self, x: torch.Tensor, *, train: bool = False):
+        """x (N, C, T) → (labels (N, T), quantized (N, emb_width, T),
+        commit ‖x_d − x‖² / x.numel() over the preprocessed x, metrics
+        {fit: mean nearest distance, pn: prenorm}). In eval the
+        straight-through output is the codebook rows themselves."""
+        if train:
+            raise NotImplementedError(
+                "the VQ's training forward (EMA update, dead-code restart) "
+                "is not ported")
+        n, _, t = x.shape
+        flat, prenorm = self._preprocess(x)
+        labels, fit = self.quantise(flat)
+        x_d = self.dequantise(labels)
+        commit = ((x_d - flat) ** 2).sum() / flat.numel()
+        x_out = x_d.reshape(n, t, -1).transpose(1, 2)
+        return labels.reshape(n, t), x_out, commit, {"fit": fit,
+                                                     "pn": prenorm}
 
 
 class Bottleneck(nn.Module):
@@ -67,3 +91,9 @@ class Bottleneck(nn.Module):
 
     def decode(self, zs: Sequence[torch.Tensor]) -> list:
         return [b.decode(z) for b, z in zip(self.children(), zs)]
+
+    def forward(self, xs: Sequence[torch.Tensor], *, train: bool = False):
+        """Per-level (labels, quantized, commit, metrics), as four lists."""
+        out = [b(x, train=train) for b, x in zip(self.children(), xs)]
+        zs, xqs, commits, metrics = map(list, zip(*out))
+        return zs, xqs, commits, metrics

@@ -2,16 +2,21 @@
 
 Parameter trees with the JAX package's flax names and shapes, made with numpy
 so that nothing here needs JAX: the scales follow the flax initialisers
-(he/lecun normal, HiFi-GAN's N(0, 0.01)), and weight-norm magnitudes g = ‖v‖.
-`chip_smoke.py` drives the full-width path with them on the card, and the
-parity tests hand the same trees to the JAX package and to the port. The
-same weights also come as torch state dicts in the reference's checkpoint
-layouts (`custom_model_state_dict`, `generator_state_dict`), for the
-loaders of convert/hubert_torch.py and convert/hifigan_torch.py.
+(he/lecun normal, HiFi-GAN's N(0, 0.01), torch's default for the jukebox
+convs), and weight-norm magnitudes g = ‖v‖. `chip_smoke.py` drives the
+full-width paths with them on the card, and the parity tests hand the same
+trees to the JAX package and to the port. The same weights also come in
+the reference's checkpoint layouts, for the loaders of
+convert/hubert_torch.py, convert/hifigan_torch.py and convert/ida_torch.py:
+`hubert_state_dict` and `write_hf_hubert` (an HF directory),
+`custom_model_state_dict`, `generator_state_dict`, `fo_vqvae_state_dict`
+and `code_generator_state_dict`.
 """
 from __future__ import annotations
 
+import json
 import math
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -46,11 +51,12 @@ def generator_tree(cfg, rng, carry: bool = False) -> dict:
         ch = c0 // 2 ** (i + 1)
         # a transposed conv's output sums 2·ch·k/u products
         tree[f"ups_{i}"] = conv((2 * ch, ch, k), ch, fan_in=2 * ch * k // u)
+        convs = ("convs1", "convs2") if cfg.resblock == "1" else ("convs",)
         for j, (rk, rd) in enumerate(zip(cfg.resblock_kernel_sizes,
                                          cfg.resblock_dilation_sizes)):
             tree[f"resblocks_{i}_{j}"] = {
-                f"convs{n}_{s}": conv((ch, ch, rk), ch)
-                for n in (1, 2) for s in range(len(rd))}
+                f"{c}_{s}": conv((ch, ch, rk), ch)
+                for c in convs for s in range(len(rd))}
     # one waveform channel, or the iSTFT head's n_fft + 2 (magnitude and
     # phase) for models/hifigan_istft.py's configuration
     n_post = cfg.istft_n_fft + 2 if hasattr(cfg, "istft_n_fft") else 1
@@ -87,12 +93,14 @@ def hubert_model_tree(cfg, rng) -> dict:
         c_in = c
     k, g = cfg.num_conv_pos_embeddings, cfg.num_conv_pos_embedding_groups
     v = _normal(rng, (h, h // g, k), h // g * k, math.sqrt(2.0))
-    hub = {"feature_extractor": fe, "fp_layer_norm": _norm(cfg.conv_dim[-1]),
+    hub = {"feature_extractor": fe,
            "fp_projection": _dense(rng, cfg.conv_dim[-1], h),
            "pos_conv_embed": {
                "conv_v": v, "conv_g": np.sqrt((v * v).sum(axis=(0, 1))),
                "conv_b": np.zeros(h, np.float32)},
            "encoder_layer_norm": _norm(h)}
+    if cfg.feat_proj_layer_norm:
+        hub["fp_layer_norm"] = _norm(cfg.conv_dim[-1])
     for i in range(cfg.num_hidden_layers):
         hub[f"layers_{i}"] = {
             "attention": {n: _dense(rng, h, h) for n in
@@ -126,34 +134,32 @@ def _dense_sd(prefix, p) -> dict:
             f"{prefix}.bias": _pt(p["bias"])}
 
 
-def custom_model_state_dict(tree: dict, cfg) -> dict:
-    """The I_ea `CustomModel` state dict, in the reference's layout, of the
-    weights of an `EncoderWithHead` tree (`hubert_tree`): HF `HubertModel`
-    keys under `base_model.` (the positional conv's weight norm as the
-    legacy `weight_g` (1, 1, K) and `weight_v`) and the head as
-    `final_layers.0` (LayerNorm) and `final_layers.1` (Linear), torch
-    tensors."""
-    hub, fe = tree["hubert"], tree["hubert"]["feature_extractor"]
+def hubert_state_dict(hub: dict, cfg) -> dict:
+    """The HF `HubertModel` state dict, in transformers' layout, of the
+    weights of a `HubertModel` tree (`hubert_model_tree`): the positional
+    conv's weight norm as the legacy `weight_g` (1, 1, K) and `weight_v`,
+    torch tensors."""
+    fe = hub["feature_extractor"]
     sd = {}
     for i in range(len(cfg.conv_dim)):
-        p = f"base_model.feature_extractor.conv_layers.{i}"
+        p = f"feature_extractor.conv_layers.{i}"
         sd[f"{p}.conv.weight"] = _pt(fe[f"conv_{i}_w"])
         if f"conv_{i}_b" in fe:
             sd[f"{p}.conv.bias"] = _pt(fe[f"conv_{i}_b"])
         if f"norm_{i}" in fe:
             sd.update(_ln_sd(f"{p}.layer_norm", fe[f"norm_{i}"]))
-    sd.update(_ln_sd("base_model.feature_projection.layer_norm",
-                     hub["fp_layer_norm"]))
-    sd.update(_dense_sd("base_model.feature_projection.projection",
+    if "fp_layer_norm" in hub:
+        sd.update(_ln_sd("feature_projection.layer_norm",
+                         hub["fp_layer_norm"]))
+    sd.update(_dense_sd("feature_projection.projection",
                         hub["fp_projection"]))
-    pc, p = hub["pos_conv_embed"], "base_model.encoder.pos_conv_embed.conv"
+    pc, p = hub["pos_conv_embed"], "encoder.pos_conv_embed.conv"
     sd[f"{p}.weight_g"] = _pt(pc["conv_g"].reshape(1, 1, -1))
     sd[f"{p}.weight_v"] = _pt(pc["conv_v"])
     sd[f"{p}.bias"] = _pt(pc["conv_b"])
-    sd.update(_ln_sd("base_model.encoder.layer_norm",
-                     hub["encoder_layer_norm"]))
+    sd.update(_ln_sd("encoder.layer_norm", hub["encoder_layer_norm"]))
     for i in range(cfg.num_hidden_layers):
-        lp, p = hub[f"layers_{i}"], f"base_model.encoder.layers.{i}"
+        lp, p = hub[f"layers_{i}"], f"encoder.layers.{i}"
         for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
             sd.update(_dense_sd(f"{p}.attention.{n}", lp["attention"][n]))
         for n in ("intermediate_dense", "output_dense"):
@@ -161,9 +167,40 @@ def custom_model_state_dict(tree: dict, cfg) -> dict:
                                 lp["feed_forward"][n]))
         sd.update(_ln_sd(f"{p}.layer_norm", lp["layer_norm"]))
         sd.update(_ln_sd(f"{p}.final_layer_norm", lp["final_layer_norm"]))
+    return sd
+
+
+def custom_model_state_dict(tree: dict, cfg) -> dict:
+    """The I_ea `CustomModel` state dict, in the reference's layout, of the
+    weights of an `EncoderWithHead` tree (`hubert_tree`): HF `HubertModel`
+    keys (`hubert_state_dict`) under `base_model.` and the head as
+    `final_layers.0` (LayerNorm) and `final_layers.1` (Linear), torch
+    tensors."""
+    sd = {f"base_model.{k}": v
+          for k, v in hubert_state_dict(tree["hubert"], cfg).items()}
     sd.update(_ln_sd("final_layers.0", tree["head"]["layer_norm"]))
     sd.update(_dense_sd("final_layers.1", tree["head"]["linear"]))
     return sd
+
+
+def write_hf_hubert(path, hub: dict, cfg, prefix: str = "") -> None:
+    """A local HF checkpoint directory of a `HubertModel` tree:
+    `config.json` (transformers' HubertConfig fields) and
+    `pytorch_model.bin` (`hubert_state_dict`, keys under `prefix`, e.g.
+    "hubert." as a `HubertForCTC` checkpoint stores them)."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    fields = ("conv_dim", "conv_stride", "conv_kernel", "conv_bias",
+              "feat_extract_norm", "hidden_size", "num_hidden_layers",
+              "num_attention_heads", "intermediate_size",
+              "do_stable_layer_norm", "num_conv_pos_embeddings",
+              "num_conv_pos_embedding_groups", "layer_norm_eps",
+              "feat_proj_layer_norm")
+    conf = {"architectures": ["HubertModel"], "model_type": "hubert",
+            **{f: getattr(cfg, f) for f in fields}}
+    (path / "config.json").write_text(json.dumps(conf, indent=2))
+    torch.save({prefix + k: v for k, v in hubert_state_dict(hub, cfg).items()},
+               path / "pytorch_model.bin")
 
 
 def generator_state_dict(tree: dict, cfg) -> dict:
@@ -190,53 +227,180 @@ def generator_state_dict(tree: dict, cfg) -> dict:
     return sd
 
 
-def codegen_tree(cfg, rng) -> tuple[dict, dict]:
-    """The `CodeGenerator` params and `vq` collection (unit-lookup regime):
-    N(0, 1) embedding tables, torch-default-scale jukebox convs, the
-    generator of `generator_tree(carry=True)` (the parity tests and
-    `chip_smoke.py` hold the features that reach it through the waveform),
-    and an f0-VQ codebook drawn N(0, 1) (training would have filled it; a
-    zero codebook sends every frame to code 0)."""
-    def conv(c_out, c_in, k):
-        bound = 1.0 / math.sqrt(c_in * k)
-        return {"w": rng.uniform(-bound, bound, (c_out, c_in, k)
-                                 ).astype(np.float32),
-                "b": rng.uniform(-bound, bound, c_out).astype(np.float32)}
+def _torch_conv(rng, c_out, c_in, k, transposed=False):
+    """torch's default init (uniform ±1/√fan_in) for a Conv1d (w (O, I,
+    K)) or a ConvTranspose1d (w (I, O, K), fan_in O·K)."""
+    bound = 1.0 / math.sqrt((c_out if transposed else c_in) * k)
+    shape = (c_in, c_out, k) if transposed else (c_out, c_in, k)
+    return {"w": rng.uniform(-bound, bound, shape).astype(np.float32),
+            "b": rng.uniform(-bound, bound, c_out).astype(np.float32)}
 
+
+def _resnet_tree(rng, cfg) -> dict:
+    n_state = int(cfg.m_conv * cfg.width)
+    return {f"block_{j}": {"conv3": _torch_conv(rng, n_state, cfg.width, 3),
+                           "conv1": _torch_conv(rng, cfg.width, n_state, 1)}
+            for j in range(cfg.depth)}
+
+
+def jukebox_tree(cfg, rng, decoder: bool = False) -> dict:
+    """A jukebox `Encoder` tree (level_{l}/down_{i}_conv, down_{i}_resnet,
+    proj), or with `decoder` a `Decoder` tree (level_{l}/proj,
+    up_{i}_resnet, up_{i}_convt; out), at torch's default init."""
+    tree, c_in = {}, cfg.input_emb_width
+    for level in range(cfg.levels):
+        stride = cfg.strides_t[level]
+        filt = stride * 2 + (stride % 2)
+        blk = {}
+        if decoder:
+            blk["proj"] = _torch_conv(rng, cfg.width, cfg.output_emb_width, 3)
+        for i in range(cfg.downs_t[level]):
+            if decoder:
+                last = i == cfg.downs_t[level] - 1
+                blk[f"up_{i}_resnet"] = _resnet_tree(rng, cfg)
+                blk[f"up_{i}_convt"] = _torch_conv(
+                    rng, cfg.output_emb_width if last else cfg.width,
+                    cfg.width, filt, transposed=True)
+            else:
+                blk[f"down_{i}_conv"] = _torch_conv(
+                    rng, cfg.width, c_in if i == 0 else cfg.width, filt)
+                blk[f"down_{i}_resnet"] = _resnet_tree(rng, cfg)
+        if not decoder:
+            blk["proj"] = _torch_conv(rng, cfg.output_emb_width, cfg.width, 3)
+        tree[f"level_{level}"] = blk
+        c_in = cfg.output_emb_width
+    if decoder:
+        tree["out"] = _torch_conv(rng, cfg.input_emb_width,
+                                  cfg.output_emb_width, 3)
+    return tree
+
+
+def vq_collection(rng, levels, bins, width) -> dict:
+    """A `vq` collection drawn N(0, 1) (training would have filled it; a
+    zero codebook sends every frame to code 0)."""
+    return {f"level_{i}": {
+        "k": rng.standard_normal((bins, width)).astype(np.float32),
+        "k_sum": np.zeros((bins, width), np.float32),
+        "k_elem": np.zeros(bins, np.float32),
+        "initted": np.ones((), bool)} for i in range(levels)}
+
+
+def fo_vqvae_tree(cfg, rng) -> tuple[dict, dict]:
+    """The `FoVQVAE` params (encoder, decoder) and `vq` collection."""
+    params = {"encoder": jukebox_tree(cfg.encoder, rng),
+              "decoder": jukebox_tree(cfg.decoder, rng, decoder=True)}
+    return params, {"vq": vq_collection(rng, cfg.levels, cfg.l_bins,
+                                    cfg.emb_width)}
+
+
+def codegen_tree(cfg, rng) -> tuple[dict, dict]:
+    """The `CodeGenerator` params and `vq` collection, as the JAX package's
+    init makes them (so the f0-VQ-VAE without its decoder, which the
+    CodeGenerator never calls): N(0, 1) embedding tables, torch-default-
+    scale jukebox convs, N(0, 1) codebooks, and the generator of
+    `generator_tree(carry=True)` (the parity tests and `chip_smoke.py` hold
+    the features that reach it through the waveform). In the content-VQ
+    regime a content encoder and its codebook take emb_c's place."""
     def table(n, d):
         return {"weight": rng.standard_normal((n, d)).astype(np.float32)}
 
-    params = {"emb_c": table(cfg.num_embeddings, cfg.embedding_dim)}
     vq = {}
+    if cfg.content_vq:
+        params = {"code_encoder": jukebox_tree(cfg.code_encoder, rng)}
+        vq["code_vq"] = vq_collection(rng, 1, cfg.code_vq_bins,
+                                      cfg.code_vq_width)
+    else:
+        params = {"emb_c": table(cfg.num_embeddings, cfg.embedding_dim)}
     if cfg.use_f0:
         q = cfg.f0_quantizer
-        enc, c_in = {}, q.encoder.input_emb_width
-        for level in range(q.encoder.levels):
-            e, w = q.encoder, q.encoder.width
-            stride = e.strides_t[level]
-            filt = stride * 2 + (stride % 2)
-            blk = {}
-            for i in range(e.downs_t[level]):
-                blk[f"down_{i}_conv"] = conv(w, c_in if i == 0 else w, filt)
-                blk[f"down_{i}_resnet"] = {
-                    f"block_{j}": {"conv3": conv(int(e.m_conv * w), w, 3),
-                                   "conv1": conv(w, int(e.m_conv * w), 1)}
-                    for j in range(e.depth)}
-            blk["proj"] = conv(e.output_emb_width, w, 3)
-            enc[f"level_{level}"] = blk
-            c_in = e.output_emb_width
-        params["fo_vqvae"] = {"encoder": enc}
+        params["fo_vqvae"] = {"encoder": jukebox_tree(q.encoder, rng)}
         params["emb_p"] = table(q.l_bins, cfg.embedding_dim)
-        vq = {"fo_vqvae": {"vq": {f"level_{i}": {
-            "k": rng.standard_normal((q.l_bins, q.emb_width)
-                                     ).astype(np.float32),
-            "k_sum": np.zeros((q.l_bins, q.emb_width), np.float32),
-            "k_elem": np.zeros(q.l_bins, np.float32),
-            "initted": np.ones((), bool)} for i in range(q.levels)}}}
+        vq["fo_vqvae"] = {"vq": vq_collection(rng, q.levels, q.l_bins,
+                                          q.emb_width)}
     if cfg.multispkr and not cfg.external_speaker_emb:
         params["emb_s"] = table(cfg.spk_embeddings, cfg.embedding_dim)
     params["generator"] = generator_tree(cfg.hifigan, rng, carry=True)
     return params, vq
+
+
+def _conv_sd(prefix, p) -> dict:
+    return {f"{prefix}.weight": _pt(p["w"]), f"{prefix}.bias": _pt(p["b"])}
+
+
+def _resnet_sd(prefix, tree, depth, reverse) -> dict:
+    """Resnet1D's `model.{j}.model.1` (k3) and `.3` (k1) convs; a
+    reversed-dilation decoder stores its blocks last to first."""
+    sd = {}
+    for i in range(depth):
+        j = depth - 1 - i if reverse else i
+        sd.update(_conv_sd(f"{prefix}.model.{j}.model.1",
+                           tree[f"block_{i}"]["conv3"]))
+        sd.update(_conv_sd(f"{prefix}.model.{j}.model.3",
+                           tree[f"block_{i}"]["conv1"]))
+    return sd
+
+
+def jukebox_state_dict(prefix: str, tree: dict, cfg,
+                       decoder: bool = False) -> dict:
+    """The reference's jukebox Sequential layout of a `jukebox_tree`:
+    encoder level `level_blocks.{l}.model.{i}.0` (strided conv), `.{i}.1`
+    (Resnet1D), `.{down_t}` (proj); decoder level `model.0` (proj),
+    `model.{1+i}.0` (Resnet1D), `model.{1+i}.1` (transposed conv), and
+    `out`."""
+    sd = {}
+    for level in range(cfg.levels):
+        base = f"{prefix}level_blocks.{level}.model"
+        lt, d = tree[f"level_{level}"], cfg.downs_t[level]
+        if decoder:
+            sd.update(_conv_sd(f"{base}.0", lt["proj"]))
+            for i in range(d):
+                sd.update(_resnet_sd(f"{base}.{1 + i}.0", lt[f"up_{i}_resnet"],
+                                     cfg.depth, cfg.reverse_decoder_dilation))
+                sd.update(_conv_sd(f"{base}.{1 + i}.1", lt[f"up_{i}_convt"]))
+        else:
+            for i in range(d):
+                sd.update(_conv_sd(f"{base}.{i}.0", lt[f"down_{i}_conv"]))
+                sd.update(_resnet_sd(f"{base}.{i}.1", lt[f"down_{i}_resnet"],
+                                     cfg.depth, False))
+            sd.update(_conv_sd(f"{base}.{d}", lt["proj"]))
+    if decoder:
+        sd.update(_conv_sd(f"{prefix}out", tree["out"]))
+    return sd
+
+
+def fo_vqvae_state_dict(params: dict, vq: dict, cfg,
+                        prefix: str = "") -> dict:
+    """The reference's f0-VQ-VAE state dict (the `generator` entry of its
+    `g_*` file) of `fo_vqvae_tree`'s weights: `encoder.*`, `decoder.*` and
+    each level's EMA codebook `vq.level_blocks.{l}.k`, torch tensors."""
+    sd = {**jukebox_state_dict(f"{prefix}encoder.", params["encoder"],
+                               cfg.encoder),
+          **jukebox_state_dict(f"{prefix}decoder.", params["decoder"],
+                               cfg.decoder, decoder=True)}
+    for name, level in vq["vq"].items():
+        sd[f"{prefix}vq.level_blocks.{name.split('_')[1]}.k"] = _pt(level["k"])
+    return sd
+
+
+def code_generator_state_dict(params: dict, vq: dict, cfg) -> dict:
+    """The reference's CodeGenerator state dict (the `generator` entry of
+    its `g_*` file) of `codegen_tree`'s weights: the HiFi-GAN keys at top
+    level (`generator_state_dict`), `emb_c`/`emb_p`/`emb_s.weight`,
+    `fo_vqvae.*` (`fo_vqvae_state_dict`; `params["fo_vqvae"]` must then
+    hold a decoder, as the reference's files do) and, in the content-VQ
+    regime, `code_encoder.*` and `code_vq.level_blocks.0.k`."""
+    sd = generator_state_dict(params["generator"], cfg.hifigan)
+    for name in ("emb_c", "emb_p", "emb_s"):
+        if name in params:
+            sd[f"{name}.weight"] = _pt(params[name]["weight"])
+    if cfg.content_vq:
+        sd.update(jukebox_state_dict("code_encoder.", params["code_encoder"],
+                                     cfg.code_encoder))
+        sd["code_vq.level_blocks.0.k"] = _pt(vq["code_vq"]["level_0"]["k"])
+    if cfg.use_f0:
+        sd.update(fo_vqvae_state_dict(params["fo_vqvae"], vq["fo_vqvae"],
+                                      cfg.f0_quantizer, prefix="fo_vqvae."))
+    return sd
 
 
 def synthetic_batch(rng, batch: int, seconds: float, mask_frames: int = 10):

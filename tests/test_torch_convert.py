@@ -13,8 +13,13 @@ compared:
     scale;
   - a V1-shaped `g_*` generator state dict (legacy `weight_g`/`weight_v`,
     and the parametrizations key style), straight and through a `g_*`
-    file on disk: atol 1e-4 on the waveform, the generator tests'
-    tolerance.
+    file on disk, and a V3 (ResBlock2) one: atol 1e-4 on the waveform,
+    the generator tests' tolerance;
+  - fairseq `HubertModel` state dicts (base and large) and local HF
+    checkpoint directories (config.json + pytorch_model.bin, also with a
+    `HubertForCTC` file's `hubert.` prefix, and without the projection's
+    LayerNorm), the config read as JAX's `HubertConfig.from_hf` reads
+    transformers' config object: atol 1e-4 at a tap.
 Norms and biases are drawn at random (test_torch_hubert.py's `jitter`),
 so a tensor loaded into the wrong place moves the output. The codebook
 loaders (`KMeans.load_auto` of a .npy and of a joblib model) are held
@@ -38,8 +43,10 @@ from speech_inpainting_tpu.models.hubert import HubertConfig as JaxHub
 from speech_inpainting_tpu.models.hubert import HubertModel as JaxModel
 from speech_inpainting_torch import testing
 from speech_inpainting_torch.convert import hifigan_torch, hubert_torch
+from speech_inpainting_torch.models.hifigan import Generator as GeneratorK2
 from speech_inpainting_torch.models.hifigan import HiFiGANConfig
 from speech_inpainting_torch.models.hubert import HubertConfig
+from test_torch_hifigan import V3_NARROW
 from test_torch_hubert import LARGE, jitter
 
 NARROW = dict(upsample_initial_channel=32)
@@ -165,9 +172,27 @@ def test_loaders_refuse_what_they_cannot_read(rng):
     with pytest.raises(KeyError, match="conv_pre"):
         hifigan_torch.convert_generator(sd, HiFiGANConfig(**NARROW),
                                         device="cpu")
-    with pytest.raises(NotImplementedError):
-        hifigan_torch.convert_generator(sd, HiFiGANConfig(resblock="2"),
+    # a ResBlock1 file read as V3 lacks ResBlock2's keys; a V3 file
+    # converts as the JAX converter does (the K2 `Generator`, atol 1e-4)
+    with pytest.raises(KeyError, match=r"resblocks\.0\.convs\.0"):
+        hifigan_torch.convert_generator(_generator_state_dict(rng),
+                                        HiFiGANConfig(**V3_NARROW),
                                         device="cpu")
+    v3 = HiFiGANConfig(**V3_NARROW)
+    sd = testing.generator_state_dict(
+        testing.generator_tree(v3, rng, carry=True), v3)
+    assert "resblocks.8.convs.1.weight_v" in sd and not any(
+        ".convs1." in k for k in sd)
+    mel = rng.standard_normal((1, 80, 5)).astype(np.float32)
+    want = np.asarray(jax.jit(Generator(JaxGen(**V3_NARROW)).apply)(
+        {"params": jhifi.convert_generator(sd, JaxGen(**V3_NARROW))},
+        jnp.asarray(mel)))
+    gen = hifigan_torch.convert_generator(sd, v3, device="cpu",
+                                          cls=GeneratorK2)
+    assert type(gen) is GeneratorK2
+    with torch.no_grad():
+        np.testing.assert_allclose(gen(torch.tensor(mel)).numpy(), want,
+                                   atol=1e-4)
 
 
 def test_kmeans_loaders_match_jax(tmp_path, monkeypatch):
@@ -191,3 +216,99 @@ def test_kmeans_loaders_match_jax(tmp_path, monkeypatch):
     monkeypatch.setitem(__import__("sys").modules, "joblib", None)
     with pytest.raises(ImportError):
         KMeans.load_auto(tmp_path / "model.km")
+
+
+_FAIRSEQ = [(r"^(feature_extractor\.conv_layers\.\d+)\.conv\.", r"\1.0."),
+            (r"^feature_projection\.layer_norm\.", "layer_norm."),
+            (r"^feature_projection\.projection\.", "post_extract_proj."),
+            (r"^encoder\.pos_conv_embed\.conv\.", "encoder.pos_conv.0."),
+            (r"\.attention\.", ".self_attn."),
+            (r"(layers\.\d+)\.layer_norm\.", r"\1.self_attn_layer_norm."),
+            (r"\.feed_forward\.intermediate_dense\.", ".fc1."),
+            (r"\.feed_forward\.output_dense\.", ".fc2.")]
+
+
+def _fairseq_state_dict(hub, cfg):
+    """fairseq's `HubertModel` keys for an HF state dict: the conv stack's
+    norm at `.2` (GroupNorm, "group" mode) or `.2.1` (a LayerNorm between
+    two TransposeLast, "layer" mode)."""
+    import re
+    norm = ".2.1." if cfg.feat_extract_norm == "layer" else ".2."
+    out = {}
+    for k, v in testing.hubert_state_dict(hub, cfg).items():
+        k = re.sub(r"^(feature_extractor\.conv_layers\.\d+)\.layer_norm\.",
+                   lambda m: m.group(1) + norm, k)
+        for pat, rep in _FAIRSEQ:
+            k = re.sub(pat, rep, k)
+        out[k] = v
+    return out
+
+
+@pytest.mark.parametrize("arrangement", ["base", "large"])
+def test_fairseq_hubert_loader_matches_jax_converter(rng, arrangement):
+    cfg = getattr(HubertConfig, arrangement)(**LARGE)
+    jcfg = getattr(JaxHub, arrangement)(**LARGE)
+    hub = jitter(testing.hubert_model_tree(cfg, rng), rng)
+    sd = _fairseq_state_dict(hub, cfg)
+    assert "post_extract_proj.weight" in sd and "layer_norm.bias" in sd
+    assert ("feature_extractor.conv_layers.6.2.1.weight" in sd) == (
+        arrangement == "large")
+    assert "encoder.layers.1.self_attn_layer_norm.weight" in sd
+    wav = rng.standard_normal((1, 4000)).astype(np.float32) * 0.3
+    want = np.asarray(jax.jit(functools.partial(
+        JaxModel(jcfg).apply, tap_layer=1))(
+        {"params": jhub.convert_fairseq_hubert(sd, jcfg)}, jnp.asarray(wav)))
+    port = hubert_torch.convert_fairseq_hubert(sd, cfg, device="cpu")
+    with torch.no_grad():
+        got = port(torch.tensor(wav), tap_layer=1).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["HubertModel", "HubertForCTC",
+                                    "no_feat_proj_layer_norm"])
+def test_hf_directory_loader_matches_jax(rng, tmp_path, layout):
+    """A local HF checkpoint directory (config.json + pytorch_model.bin),
+    read without transformers: the config as JAX's `HubertConfig.from_hf`
+    reads transformers' config object, the weights as JAX's
+    `convert_hf_hubert`; a `HubertForCTC` file's `hubert.` prefix is
+    stripped and its other keys ignored."""
+    import json
+    import types
+    over = dict(feat_proj_layer_norm=layout != "no_feat_proj_layer_norm")
+    cfg = HubertConfig.large(**LARGE, **over)
+    hub = jitter(testing.hubert_model_tree(cfg, rng), rng)
+    prefix = "hubert." if layout == "HubertForCTC" else ""
+    testing.write_hf_hubert(tmp_path, hub, cfg, prefix=prefix)
+    conf = json.loads((tmp_path / "config.json").read_text())
+    if layout == "HubertForCTC":
+        sd = torch.load(tmp_path / "pytorch_model.bin", weights_only=True)
+        sd["hubert.masked_spec_embed"] = torch.zeros(64)
+        sd["lm_head.weight"] = torch.zeros(32, 64)
+        torch.save(sd, tmp_path / "pytorch_model.bin")
+    if layout == "HubertModel":        # older files lack the field
+        del conf["feat_proj_layer_norm"]
+        (tmp_path / "config.json").write_text(json.dumps(conf))
+    got_cfg, port = hubert_torch.load_hf_pretrained(tmp_path, device="cpu")
+    jcfg = JaxHub.from_hf(types.SimpleNamespace(**conf))
+    for field in HubertConfig.__dataclass_fields__:
+        if field != "dtype":
+            assert getattr(got_cfg, field) == getattr(jcfg, field), field
+    assert got_cfg == cfg
+    wav = rng.standard_normal((1, 4000)).astype(np.float32) * 0.3
+    want = np.asarray(jax.jit(functools.partial(
+        JaxModel(jcfg).apply, tap_layer=2))(
+        {"params": jhub.convert_hf_hubert(
+            testing.hubert_state_dict(hub, cfg), jcfg)}, jnp.asarray(wav)))
+    with torch.no_grad():
+        got = port(torch.tensor(wav), tap_layer=2).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_hf_directory_loader_refuses_safetensors_only(tmp_path):
+    (tmp_path / "config.json").write_text("{}")
+    (tmp_path / "model.safetensors").write_bytes(b"")
+    with pytest.raises(ValueError, match="safetensors"):
+        hubert_torch.load_hf_pretrained(tmp_path, device="cpu")
+    (tmp_path / "model.safetensors").unlink()
+    with pytest.raises(FileNotFoundError, match="pytorch_model.bin"):
+        hubert_torch.load_hf_pretrained(tmp_path, device="cpu")

@@ -15,7 +15,6 @@ import pickle
 from pathlib import Path
 
 import numpy as np
-import pytest
 import torch
 
 import jax
@@ -25,7 +24,9 @@ from speech_inpainting_tpu.models.hifigan import Generator
 from speech_inpainting_tpu.models.hifigan import HiFiGANConfig as JaxConfig
 from speech_inpainting_torch import testing
 from speech_inpainting_torch.convert.from_jax import generator_from_jax
+from speech_inpainting_torch.models.hifigan import Generator as Generator_
 from speech_inpainting_torch.models.hifigan import HiFiGANConfig
+from speech_inpainting_torch.models.hifigan_fast import FastGenerator
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -97,6 +98,38 @@ def test_config_from_v1_json():
     assert got == HiFiGANConfig() and got.total_upsample == 256
 
 
-def test_resblock2_is_refused():
-    with pytest.raises(NotImplementedError):
-        generator_from_jax(HiFiGANConfig(resblock="2"), {}, device="cpu")
+# configs/hifigan_v3.json at width 32: ResBlock2, kernel sizes 3/5/7
+V3_NARROW = dict(resblock="2", upsample_rates=(8, 8, 4),
+                 upsample_kernel_sizes=(16, 16, 8),
+                 upsample_initial_channel=32,
+                 resblock_kernel_sizes=(3, 5, 7),
+                 resblock_dilation_sizes=((1, 2), (2, 6), (3, 12)))
+
+
+def test_resblock2_is_refused(rng):
+    """Once refused, ResBlock2 (config V3) now runs: the port's generators
+    (FastGenerator and the K2 `Generator`, whose ResBlock2s are torch
+    convolutions in both) against flax's V3 at width 32, with weights that
+    carry the signal through every block, atol 1e-4."""
+    with open(ROOT / "configs" / "hifigan_v3.json") as f:
+        h = json.load(f)
+    assert HiFiGANConfig.from_dict(h) == HiFiGANConfig(
+        **dict(V3_NARROW, upsample_initial_channel=256))
+    mel = rng.standard_normal((2, 80, 7)).astype(np.float32)
+    params = testing.generator_tree(HiFiGANConfig(**V3_NARROW), rng,
+                                    carry=True)
+    shapes = jax.eval_shape(Generator(JaxConfig(**V3_NARROW)).init,
+                            jax.random.PRNGKey(0), jnp.asarray(mel))["params"]
+    assert (jax.tree_util.tree_map(np.shape, params)
+            == jax.tree_util.tree_map(lambda s: s.shape, shapes))
+    want = np.asarray(jax.jit(Generator(JaxConfig(**V3_NARROW)).apply)(
+        {"params": params}, jnp.asarray(mel)))
+    assert want.shape == (2, 1, 7 * 256)
+    assert np.abs(want).std() > 0.05          # not a silent waveform
+    for cls in (FastGenerator, Generator_):
+        gen = generator_from_jax(HiFiGANConfig(**V3_NARROW), params,
+                                 device="cpu", cls=cls)
+        assert set(gen.resblocks[0]) == {"w", "b"}
+        with torch.no_grad():
+            got = gen(torch.tensor(mel)).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-4)

@@ -194,9 +194,21 @@ def test_config_from_da_json():
                                                  wq.levels) == (20, 128, 1)
     assert dataclass_dict(q.encoder) == dataclass_dict(wq.encoder)
     assert q.encoder.total_stride == 16 and not got.content_vq
-    with pytest.raises(NotImplementedError):
-        codegen.CodeGenerator(codegen.CodeGeneratorConfig.from_dict(
-            dict(h, lambda_commit_code=1.0)))
+    assert got.code_encoder is want.code_encoder is None
+    # the content-VQ regime's fields (lambda_commit_code,
+    # code_encoder_params, code_vq_params), read as the JAX package does
+    hv = dict(h, lambda_commit_code=1.0,
+              code_encoder_params=dict(q.encoder.__dict__, width=16),
+              code_vq_params={"l_bins": 50, "emb_width": 128, "mu": 0.9})
+    got = codegen.CodeGeneratorConfig.from_dict(hv)
+    want = jcodegen.CodeGeneratorConfig.from_dict(hv)
+    assert got.content_vq
+    assert dataclass_dict(got.code_encoder) == dataclass_dict(
+        want.code_encoder)
+    for field in ("code_vq_bins", "code_vq_width", "code_vq_mu"):
+        assert getattr(got, field) == getattr(want, field), field
+    assert (got.code_vq_bins, got.code_vq_width) == (50, 128)
+    assert not hasattr(codegen.CodeGenerator(got), "emb_c")
 
 
 def dataclass_dict(d):

@@ -85,7 +85,14 @@ def test_entry_points_refuse_the_cpu_unasked():
     from speech_inpainting_torch.convert.hifigan_torch import (
         convert_generator)
     from speech_inpainting_torch.convert.hubert_torch import (
-        convert_custom_model, convert_hf_hubert)
+        convert_custom_model, convert_fairseq_hubert, convert_hf_hubert,
+        load_hf_pretrained)
+    from speech_inpainting_torch.convert.ida_torch import (
+        convert_code_generator, convert_fo_vqvae)
+    from speech_inpainting_torch.convert.from_jax import fo_vqvae_from_jax
+    from speech_inpainting_torch.data.code_dataset import mel_stats_embedder
+    from speech_inpainting_torch.models.codegen import FoVQVAEConfig
+    from speech_inpainting_torch.quantize.kmeans import fit_kmeans
     from speech_inpainting_torch.models.hifigan_istft import (
         ISTFTGeneratorConfig)
     from speech_inpainting_torch.infer.ida_inpaint import IdaInpainter
@@ -110,7 +117,14 @@ def test_entry_points_refuse_the_cpu_unasked():
                  lambda: istft_generator_from_jax(ISTFTGeneratorConfig(), {}),
                  lambda: convert_generator({}, HiFiGANConfig()),
                  lambda: convert_custom_model({}, HubertConfig.large()),
-                 lambda: convert_hf_hubert({}, HubertConfig.large())):
+                 lambda: convert_hf_hubert({}, HubertConfig.large()),
+                 lambda: convert_fairseq_hubert({}, HubertConfig.base()),
+                 lambda: load_hf_pretrained("."),
+                 lambda: convert_code_generator({}, cg),
+                 lambda: convert_fo_vqvae({}, FoVQVAEConfig()),
+                 lambda: fo_vqvae_from_jax(FoVQVAEConfig(), {}, {}),
+                 lambda: mel_stats_embedder(),
+                 lambda: fit_kmeans(np.zeros((4, 2), np.float32), 2)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
