@@ -104,7 +104,25 @@ it stopped); any failure raises and exits non-zero:
   kmeans_fit    `fit_kmeans` with k = 100 over 200 000 × 768 rows, 50
                 iterations, 3 restarts (seconds, inertia); `_lloyd` card vs
                 CPU from one start on 20 000 rows (inertia rel 1e-5, at
-                most 0.1% of labels different).
+                most 0.1% of labels different);
+  ea_train_parity  one I_ea train step at HuBERT-base's full width, B = 2
+                × 2 s, f32: card vs CPU (loss rel 1e-5, accuracies equal,
+                parameters rtol 2e-5 atol 2e-6), each gradient against
+                the step in float64 (1e-4 of the tensor's largest, or 4 ×
+                the CPU's float32 gap), the zero-gradient k_proj biases to
+                their noise bound; then on the card grad_accum 2 vs 1, a
+                nan batch under the guard (bit-equal, one skip) and the
+                frozen encoder (bit-equal, head moved);
+  ea_train      HuBERT-large + head, B = 16 × 5 s, cos_sim, 100 × 80
+                codebook: 12 bf16 steps with the guard off, 12 with it on,
+                4 f32 steps (ms per step by CUDA events, audio-s/s, peak
+                memory, the step's bound), one bf16 step profiled; losses
+                finite and falling;
+  train_ea_cli  `train_ea.main` on 32 × 5 s wavs, an HF HuBERT-large
+                directory and a 100 × 80 codebook, twice (2 steps, then a
+                resume from step 2 to 4), then `predict_ea.main` from its
+                `last_` (216 K1 launches); the head from `last_` equal to
+                the trained module (atol 1e-6, f32).
 Then the `spills` and `kernels` lines (K1's and K2's launches on each
 path), and last {"ok": true, "device": {...}}.
 
@@ -1973,6 +1991,481 @@ def phase_kmeans_fit(torch) -> dict:
     return row
 
 
+# ------------------------------------------------ I_ea training (train_ea)
+
+EA_MASK = 20         # frames, EAConfig's and the CLI's default
+EA_SAMPLES = 80003   # the CLI's max_length at 5 s (16 000·5 + 3)
+NOISY = ".attention.k_proj.bias"   # gradient zero in exact arithmetic
+
+
+def _ea_batch(rng, B, samples, K, lengths=None):
+    """A training batch as EADataset makes it: `synthetic_utterance` rows
+    (each `lengths[b]` long, zero past it), their attention mask, a mask
+    position inside each row, and one random codeword over each row's
+    masked frames (a sustained sound, which a fixed batch can fit)."""
+    from speech_inpainting_torch.testing import synthetic_utterance
+    lengths = np.full(B, samples) if lengths is None else np.asarray(lengths)
+    wav = np.zeros((B, samples), np.float32)
+    for b, n in enumerate(lengths):
+        wav[b, :n] = synthetic_utterance(rng, n / 16000)[:n]
+    attn = (np.arange(samples)[None] < lengths[:, None]).astype(np.int32)
+    max_pos = (np.minimum(lengths, samples) - 80) // 320 - EA_MASK
+    return {"wav": wav, "attn_mask": attn,
+            "mask_pos": rng.integers(0, max_pos).astype(np.int32),
+            "labels": np.repeat(rng.integers(0, K, (B, 1)), EA_MASK,
+                                axis=1).astype(np.int32)}
+
+
+def _trained_like(tree: dict, rng) -> dict:
+    """`tree` (testing.py's init: conv biases zero, norms one and zero)
+    with every conv bias and norm bias drawn from N(0, 1) and every norm
+    scale from 1 + N(0, 0.1), as trained weights have them. With zero
+    biases a zeroed (masked) stretch of audio leaves the first conv's
+    output exactly zero over its channels there, and HuBERT-large's
+    LayerNorm over channels then multiplies the gradient by 1/√eps (316)
+    per conv layer: the global norm overflows float32 and the clip (in
+    the JAX package too) zeroes the whole update."""
+    def walk(t):
+        out = {}
+        for k, v in t.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif k == "scale":
+                out[k] = (1 + 0.1 * rng.standard_normal(v.shape)
+                          ).astype(np.float32)
+            elif k == "bias" or re.fullmatch(r"conv_\d+_b", k):
+                out[k] = rng.standard_normal(v.shape).astype(np.float32)
+            else:
+                out[k] = v
+        return out
+    return walk(tree)
+
+
+def _ea_run(torch, hcfg, tree, centroids, device, batches, to=None,
+            **over):
+    """Steps of the trainer on `device` from `tree` (its parameters cast
+    `to` a type, where given): (state, [metrics])."""
+    from speech_inpainting_torch.convert.from_jax import trainable_hubert
+    from speech_inpainting_torch.train import ea
+    cfg = ea.EAConfig(mask_length=EA_MASK, **over)
+    model = trainable_hubert(hcfg, tree, 80, device=device)
+    state = ea.create_state(cfg, model if to is None else model.to(to))
+    step = ea.make_train_step(cfg, centroids, device)
+    ms = []
+    for b in batches:
+        state, m = step(state, b)
+        ms.append({k: float(v) for k, v in m.items()})
+    return state, ms
+
+
+def _named(state, of):
+    return {n: of(p).detach().float().cpu()
+            for n, p in state.model.named_parameters()}
+
+
+def _step_gaps(a, b, start, ref=None, lr=1e-4, wd=1e-2, eps=1e-6) -> dict:
+    """Two states after one step from the parameters `start`: the
+    largest gradient gap over each tensor's largest magnitude (and its
+    tensor), the largest parameter excess over rtol 2e-5 + atol 2e-6, and,
+    for the k_proj biases (zero gradient: each side's is rounding noise n,
+    which AdamW's first step turns into an update of lr·n/(n + eps)), the
+    largest update beyond that bound and the largest noise over the
+    model's largest gradient. With `ref` (a float64 state after the same
+    step), each of a's gradients against ref's beside b's: the largest
+    excess of a's gap over max(1e-4, 4 × b's gap), each over the tensor's
+    largest magnitude (float32 itself, b, misses float64 by more than 1e-4
+    where a tensor's gradient is a small difference of large terms)."""
+    ga, gb = _named(a, lambda p: p.grad), _named(b, lambda p: p.grad)
+    pa, pb = _named(a, lambda p: p), _named(b, lambda p: p)
+    gr = ref and {n: g.double() for n, g in _named(
+        ref, lambda p: p.grad).items()}
+    top = max(float(g.abs().max()) for g in ga.values())
+    out = {"grad_rel": 0.0, "grad_rel_tensor": None, "param_excess": 0.0,
+           "param_excess_tensor": None, "noise_update_excess": 0.0,
+           "noise_rel": 0.0}
+    if ref is not None:
+        out.update(grad_vs_f64_excess=-1.0, grad_vs_f64_tensor=None)
+    for n in ga:
+        if n.endswith(NOISY):
+            for g, p in ((ga[n], pa[n]), (gb[n], pb[n])):
+                m = float(g.abs().max())
+                out["noise_rel"] = max(out["noise_rel"], m / top)
+                step = (p - start[n] * (1 - lr * wd)).abs().max()
+                out["noise_update_excess"] = max(
+                    out["noise_update_excess"],
+                    float(step) - lr * m / (m + eps) * 1.001)
+            continue
+        scale = float(ga[n].abs().max()) or 1.0
+        rel = float((ga[n] - gb[n]).abs().max()) / scale
+        if rel > out["grad_rel"]:
+            out["grad_rel"], out["grad_rel_tensor"] = rel, n
+        exc = float(((pa[n] - pb[n]).abs() - 2e-5 * pb[n].abs()).max())
+        if exc > out["param_excess"]:
+            out["param_excess"], out["param_excess_tensor"] = exc, n
+        if ref is not None:
+            m = float(gr[n].abs().max()) or 1.0
+            gap_a = float((ga[n].double() - gr[n]).abs().max()) / m
+            gap_b = float((gb[n].double() - gr[n]).abs().max()) / m
+            exc = gap_a - max(1e-4, 4 * gap_b)
+            if exc > out["grad_vs_f64_excess"]:
+                out.update(grad_vs_f64_excess=exc, grad_vs_f64_tensor=n,
+                           grad_vs_f64_card=gap_a, grad_vs_f64_cpu=gap_b)
+    return out
+
+
+def phase_ea_train_parity(torch) -> dict:
+    """One I_ea train step at HuBERT-base's full width (768, 12 layers),
+    B = 2 × 2 s (one row 1.6 s, padded), f32, from one seeded tree: the
+    card against the CPU (loss rel 1e-5, accuracies equal, parameters
+    within rtol 2e-5, atol 2e-6, tests/test_train_ea.py's gate) and each
+    gradient against the same step in float64 on the CPU (within 1e-4 of
+    the tensor's largest magnitude, or within 4 × the CPU's float32 gap
+    where that is larger: in the last layers' attention the CPU's float32
+    gradient itself misses float64 by more than 1e-4); the k_proj biases,
+    whose gradient is rounding noise, held to zero noise (below 1e-6 of the
+    largest gradient) and to the update AdamW makes of it. Then on the
+    card: grad_accum 2 against 1 (loss rel 1e-5, the same parameter
+    gates), a nan batch with skip_nonfinite after a finite one (parameters
+    and both moments bit-equal, one skip), and train_encoder off (the
+    encoder bit-equal, the head moved)."""
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    from speech_inpainting_torch.testing import hubert_tree
+    rng = np.random.default_rng(SEED + 140)
+    hcfg = HubertConfig.base()
+    tree = hubert_tree(hcfg, 80, rng)
+    centroids = rng.standard_normal((100, 80)).astype(np.float32)
+    batch = _ea_batch(rng, 2, 32000, 100, lengths=(32000, 25600))
+    t0 = time.perf_counter()
+    card, (mc,) = _ea_run(torch, hcfg, tree, centroids, "cuda", [batch])
+    cpu, (mp,) = _ea_run(torch, hcfg, tree, centroids, "cpu", [batch])
+    f64, _ = _ea_run(torch, HubertConfig.base(dtype=torch.float64), tree,
+                     centroids, "cpu", [batch], to=torch.float64)
+    start = _named(_ea_run(torch, hcfg, tree, centroids, "cpu", [])[0],
+                   lambda p: p)
+    gaps = _step_gaps(card, cpu, start, ref=f64)
+    del cpu, f64
+    accum, (ma,) = _ea_run(torch, hcfg, tree, centroids, "cuda", [batch],
+                           grad_accum=2)
+    acc_gaps = _step_gaps(card, accum, start)
+    del accum
+    # a finite step, then a nan batch: nothing moves
+    bad = dict(batch, wav=batch["wav"].copy())
+    bad["wav"][0, 100] = np.nan
+    guarded, _ = _ea_run(torch, hcfg, tree, centroids, "cuda", [batch],
+                         skip_nonfinite=5)
+    opt = guarded.optimizer
+    before = [(p.detach().clone(), opt.state[p]["exp_avg"].clone(),
+               opt.state[p]["exp_avg_sq"].clone(), opt.state[p]["step"])
+              for p in guarded.model.parameters()]
+    from speech_inpainting_torch.train import ea
+    step = ea.make_train_step(ea.EAConfig(mask_length=EA_MASK,
+                                          skip_nonfinite=5), centroids,
+                              "cuda")
+    guarded, mb = step(guarded, bad)
+    after = [(p, opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"],
+              opt.state[p]["step"]) for p in guarded.model.parameters()]
+    skip_equal = all(torch.equal(x, y) for b4, af in zip(before, after)
+                     for x, y in zip(b4[:3], af[:3])) and all(
+        b4[3] == af[3] for b4, af in zip(before, after))
+    skips = (guarded.guard.notfinite_count, int(mb["nonfinite_skips"]))
+    del guarded, before, after
+    frozen, _ = _ea_run(torch, hcfg, tree, centroids, "cuda", [batch],
+                        train_encoder=False)
+    fp = _named(frozen, lambda p: p)
+    enc_equal = all(torch.equal(fp[n], start[n]) for n in fp
+                    if not n.startswith("head."))
+    head_moved = any(not torch.equal(fp[n], start[n]) for n in fp
+                     if n.startswith("head."))
+    del frozen
+    loss_rel = abs(mc["loss"] - mp["loss"]) / abs(mp["loss"])
+    accum_rel = abs(ma["loss"] - mc["loss"]) / abs(mc["loss"])
+    noise_ok = lambda g: (g["noise_rel"] < 1e-6  # noqa: E731
+                          and g["noise_update_excess"] <= 1e-12)
+    ok = (loss_rel <= 1e-5 and (mc["acc"], mc["cos_sim_acc"]) ==
+          (mp["acc"], mp["cos_sim_acc"]) and gaps["grad_vs_f64_excess"] <= 0
+          and gaps["param_excess"] <= 2e-6 and noise_ok(gaps)
+          and accum_rel <= 1e-5 and acc_gaps["param_excess"] <= 2e-6
+          and noise_ok(acc_gaps) and skip_equal and skips == (1, 1)
+          and enc_equal and head_moved)
+    row = {"phase": "ea_train_parity", "hubert": "base", "B": 2,
+           "samples": 32000, "dtype": "float32", "loss_card": mc["loss"],
+           "loss_cpu": mp["loss"], "loss_rel": loss_rel,
+           "acc_card_cpu": [mc["acc"], mp["acc"]], "card_vs_cpu": gaps,
+           "grad_accum2_loss_rel": accum_rel,
+           "grad_accum2_vs_1": acc_gaps, "skip_bit_equal": skip_equal,
+           "skips": skips, "frozen_encoder_bit_equal": enc_equal,
+           "frozen_head_moved": head_moved,
+           "seconds": time.perf_counter() - t0, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("I_ea train-step parity check failed")
+    return row
+
+
+def ea_step_bound_ms(hcfg, B, samples, dtype_name) -> dict:
+    """The least time of one train step at these shapes: forward and
+    backward FLOP (3× the forward's: the conv stack, the positional conv,
+    the dense layers, the attention products) over the peak rate of the
+    type (f32 runs in full f32, off the tensor cores), plus AdamW's bytes
+    (parameter, gradient, two moments read; parameter and two moments
+    written, float32) over the memory rate: the update cannot start before
+    the last gradient."""
+    n, conv = samples, 0.0
+    c_in = 1
+    for c, k, s in zip(hcfg.conv_dim, hcfg.conv_kernel, hcfg.conv_stride):
+        n = (n - k) // s + 1
+        conv += 2.0 * n * c * c_in * k
+        c_in = c
+    T, H, F = n, hcfg.hidden_size, hcfg.intermediate_size
+    dense = hcfg.num_hidden_layers * (4 * H * H + 2 * H * F)
+    flops = B * (conv + 2.0 * T * (dense + c_in * H)
+                 + 2.0 * T * H * (H // hcfg.num_conv_pos_embedding_groups)
+                 * hcfg.num_conv_pos_embeddings
+                 + hcfg.num_hidden_layers * 4.0 * T * T * H)
+    n_params = (dense + sum(c * ci * k for c, ci, k in zip(
+        hcfg.conv_dim, (1,) + tuple(hcfg.conv_dim[:-1]), hcfg.conv_kernel))
+        + c_in * H + H * H // hcfg.num_conv_pos_embedding_groups
+        * hcfg.num_conv_pos_embeddings)
+    fwd_bwd_ms = 1e3 * 3 * flops / PEAK_FLOPS[dtype_name]
+    adamw_ms = 1e3 * 7 * 4 * n_params / PEAK_BYTES
+    return {"forward_tflop": flops / 1e12, "params_millions": n_params / 1e6,
+            "fwd_bwd_ms": fwd_bwd_ms, "adamw_ms": adamw_ms,
+            "bound_ms": fwd_bwd_ms + adamw_ms}
+
+
+def _timed_steps(torch, step, state, batch, warmup, iters) -> tuple:
+    """(per-step ms by CUDA events, losses): `warmup` untimed steps, then
+    `iters` timed ones, each between two events on the compute stream."""
+    losses = []
+    for _ in range(warmup):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for a, b in events:
+        a.record()
+        state, m = step(state, batch)
+        b.record()
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    return ([a.elapsed_time(b) for a, b in events],
+            [float(v) for v in losses])
+
+
+def _profile_step(torch, step, state, batch, top=12) -> dict:
+    """One step under torch.profiler (CPU and CUDA activities): the kernels
+    that took the most device time, the kernels' total, and that total
+    over the step's time between two CUDA events (the device's busy share;
+    "not measured" where the trace holds no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        a.record()
+        step(state, batch)
+        b.record()
+        torch.cuda.synchronize()
+    step_ms = a.elapsed_time(b)
+    dev = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                            getattr(e, "self_cuda_time_total", 0)) / 1e3
+    # the kernels themselves: an operator's entry sums its kernels again,
+    # and a range recorded on the host (Optimizer.step) reappears on the
+    # device spanning its kernels
+    averages = prof.key_averages()
+    host = {e.key for e in averages
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    events = [e for e in averages
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key not in host and dev(e) > 0]
+    busy_ms = sum(dev(e) for e in events)
+    if not events:
+        return {"step_ms": step_ms, "busy_share": "not measured"}
+    events.sort(key=dev, reverse=True)
+    return {"step_ms": step_ms, "device_ms": busy_ms,
+            "busy_share": busy_ms / step_ms,
+            "top": [{"name": e.key[:90], "ms": dev(e), "calls": e.count}
+                    for e in events[:top]]}
+
+
+def phase_ea_train(torch) -> dict:
+    """The I_ea trainer at full width: configs/ea_large.yaml's model
+    (HuBERT-large) with a 100 × 80 codebook, B = 16 × 5 s (80 003
+    samples, the CLI's max_length), cos_sim, one fixed batch on the card.
+    bf16 compute: 2 warm-up steps and 10 timed (CUDA events per step:
+    median, min, max), then 10 more with the nonfinite guard on (one flag
+    read per step); f32 compute: 1 warm-up and 3 timed. Each: ms per step,
+    trained audio-s per s, peak memory, beside the step's bound; one more
+    bf16 step under torch.profiler (`_profile_step`). Gates: every loss
+    finite, the last below the first."""
+    from speech_inpainting_torch.convert.from_jax import trainable_hubert
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    from speech_inpainting_torch.testing import hubert_tree
+    from speech_inpainting_torch.train import ea
+    rng = np.random.default_rng(SEED + 150)
+    tree = _trained_like(hubert_tree(HubertConfig.large(), 80, rng), rng)
+    centroids = rng.standard_normal((100, 80)).astype(np.float32)
+    B = 16
+    host = _ea_batch(rng, B, EA_SAMPLES, 100)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
+    audio_s = B * 5.0
+    rows, ok = {}, True
+    for name, dtype, warmup, iters in (("bf16", torch.bfloat16, 2, 10),
+                                       ("f32", torch.float32, 1, 3)):
+        hcfg = HubertConfig.large(dtype=dtype)
+        guards = (0, 5) if name == "bf16" else (0,)
+        for guard in guards:
+            cfg = ea.EAConfig(skip_nonfinite=guard)
+            torch.cuda.reset_peak_memory_stats()
+            state = ea.create_state(cfg, trainable_hubert(
+                hcfg, tree, 80, device="cuda"))
+            step = ea.make_train_step(cfg, centroids, "cuda")
+            t0 = time.perf_counter()
+            ms, losses = _timed_steps(torch, step, state, batch, warmup,
+                                      iters)
+            wall = (time.perf_counter() - t0) / (warmup + iters)
+            med = float(np.median(ms))
+            key = name + ("_guard" if guard else "")
+            rows[key] = {
+                "ms_per_step_median": med, "ms_per_step_min": min(ms),
+                "ms_per_step_max": max(ms), "ms_per_step": ms,
+                "wall_s_per_step_incl_warmup": wall,
+                "audio_seconds_per_second": audio_s / (med / 1e3),
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "losses": losses,
+                **ea_step_bound_ms(hcfg, B, EA_SAMPLES,
+                                   "bfloat16" if name == "bf16"
+                                   else "float32")}
+            ok &= (all(np.isfinite(losses)) and losses[-1] < losses[0])
+            if key == "bf16":
+                rows["bf16_profile"] = _profile_step(torch, step, state,
+                                                     batch)
+            del state, step
+    row = {"phase": "ea_train", "hubert": "large", "B": B,
+           "samples": EA_SAMPLES, "loss": "cos_sim", "codebook": [100, 80],
+           "audio_seconds_per_step": audio_s, **rows, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("I_ea training run check failed")
+    return row
+
+
+def phase_train_ea_cli(torch) -> dict:
+    """`train_ea.main` and then `predict_ea.main` on the card, as a user
+    runs them, on files written to a temporary directory: 32 synthetic
+    5 s 16 kHz wavs with their `_labels.npy`, train and valid splits, a
+    100 × 80 .npy codebook, an HF HuBERT-large directory (config.json +
+    pytorch_model.bin) and a V1 `g_*` file. `--hubert-type large
+    --pretrained DIR --batch-size 16 --epochs 1` (2 steps, bf16); again
+    with `--epochs 1 --f32`, which resumes from ea_00000002 and ends at
+    step 4 (`--epochs` counts this run's epochs, as in the JAX loop); then
+    `predict_ea --hubert-checkpoint last_00000000` with labels (three
+    vocoder calls, 216 K1 launches). Checks: every checkpoint and artifact
+    written, the resume, K1's launches, and the head's output from `last_`
+    equal to the trained module's in memory (atol 1e-6, f32)."""
+    import importlib.util
+    import tempfile
+    from scipy.io import wavfile
+    from speech_inpainting_torch.cli import predict_ea, train_ea
+    from speech_inpainting_torch.device import full_f32
+    from speech_inpainting_torch.models.hifigan import HiFiGANConfig
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    from speech_inpainting_torch.ops.resblock import fused_resblock1
+    from speech_inpainting_torch.testing import (generator_state_dict,
+                                                 generator_tree,
+                                                 hubert_model_tree,
+                                                 synthetic_batch,
+                                                 synthetic_utterance,
+                                                 write_hf_hubert)
+    figures = importlib.util.find_spec("matplotlib") is not None
+    rng = np.random.default_rng(SEED + 160)
+    hcfg = HubertConfig.large()
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        (d / "wavs").mkdir()
+        (d / "labels").mkdir()
+        names = [f"utt{i:02d}" for i in range(32)]
+        for n in names:
+            wavfile.write(d / "wavs" / f"{n}.wav", 16000, (
+                synthetic_utterance(rng, 5.0) * 32767).astype(np.int16))
+            np.save(d / "labels" / f"{n}_labels.npy",
+                    rng.integers(0, 100, 249).astype(np.int32))
+        (d / "train.txt").write_text("\n".join(names) + "\n")
+        (d / "valid.txt").write_text("\n".join(names[:4]) + "\n")
+        np.save(d / "km.npy", rng.standard_normal((100, 80)
+                                                  ).astype(np.float32))
+        write_hf_hubert(d / "hf", _trained_like(hubert_model_tree(hcfg,
+                                                                  rng), rng),
+                        hcfg)
+        gcfg = HiFiGANConfig()
+        torch.save({"generator": generator_state_dict(
+            generator_tree(gcfg, rng), gcfg)}, d / "g_00000001")
+        w22 = synthetic_batch(rng, 1, 4.0)[0][0]
+        wavfile.write(d / "utt.wav", 22050, (w22 * 32767).astype(np.int16))
+        np.save(d / "pred_labels.npy", rng.integers(0, 100, 200))
+        setup_s = time.perf_counter() - t_start
+        common = ["--wavs", str(d / "wavs"), "--split", str(d / "train.txt"),
+                  "--valid-split", str(d / "valid.txt"), "--labels-dir",
+                  str(d / "labels"), "--kmeans", str(d / "km.npy"),
+                  "--checkpoint-path", str(d / "ckpt"), "--hubert-type",
+                  "large", "--pretrained", str(d / "hf"), "--batch-size",
+                  "16", "--epochs", "1", "--device", "cuda"]
+        t0 = time.perf_counter()
+        first = train_ea.main(common)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        first_step = first.step
+        after_first = sorted(p.name for p in (d / "ckpt").iterdir())
+        del first
+        t0 = time.perf_counter()
+        second = train_ea.main(common + ["--f32"])
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+        ckpts = sorted(p.name for p in (d / "ckpt").iterdir())
+        # the head's output from last_ against the module in memory, f32
+        wav = torch.as_tensor(synthetic_utterance(rng, 2.0),
+                              device="cuda")[None]
+        loaded = predict_ea.load_trained_hubert(
+            d / "ckpt" / "last_00000000", hcfg, "cuda")
+        with torch.no_grad(), full_f32():
+            head_gap = (loaded(wav) - second.model(wav)).abs().max().item()
+        end_step = second.step
+        del second, loaded
+        fused_resblock1.launches = 0
+        t0 = time.perf_counter()
+        predict_ea.main(["--wav", str(d / "utt.wav"), "--start-sec", "1.5",
+                         "--end-sec", "1.7", "--labels",
+                         str(d / "pred_labels.npy"), "--hubert-checkpoint",
+                         str(d / "ckpt" / "last_00000000"), "--hubert-type",
+                         "large", "--hifigan-checkpoint",
+                         str(d / "g_00000001"), "--kmeans",
+                         str(d / "km.npy"), "--out", str(d / "pred"),
+                         "--device", "cuda"], figures=figures)
+        predict_s = time.perf_counter() - t0
+        launches = fused_resblock1.launches
+        written = sorted(p.name for p in (d / "pred" / "utt").iterdir())
+    want = ["orig.wav", "masked.wav", "hifi_masked.wav", "inpainted.wav",
+            "expected_inpaint.wav"]
+    if figures:
+        want += ["masked.png", "inpainted.png", "expected.png"]
+    ok = (first_step == 2 and after_first == ["ea_00000002", "last_00000000"]
+          and end_step == 4 and ckpts == ["ea_00000002", "ea_00000004",
+                                          "last_00000000"]
+          and head_gap <= 1e-6 and set(want) <= set(written)
+          and launches == 3 * 72)
+    row = {"phase": "train_ea_cli", "wavs": 32, "seconds_per_wav": 5.0,
+           "steps_first_run": first_step, "end_step_resumed": end_step,
+           "checkpoints": ckpts, "head_gap_last_vs_memory": head_gap,
+           "written": written, "launches": launches,
+           "expected_launches": 3 * 72, "setup_seconds": setup_s,
+           "train_seconds_first": first_s, "train_seconds_resumed": second_s,
+           "predict_seconds": predict_s, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("train_ea CLI check failed")
+    return row
+
+
 def control_unpinned(torch) -> int:
     """The control of `default_flags` (`--unpinned`): the entry points'
     pinning (`device.full_f32`) is made a no-op before they are imported,
@@ -2036,6 +2529,9 @@ def main() -> int:
     phase_f0vq(torch)
     cvq = phase_content_vq(torch)
     phase_kmeans_fit(torch)
+    phase_ea_train_parity(torch)
+    phase_ea_train(torch)
+    tcli = phase_train_ea_cli(torch)
     taken = {"I_ea": _plan_tiles(4, path["T"], path["kernel_sizes"],
                                  path["dilations"]),
              "I_da": _plan_tiles(1, ida["T"], ida["kernel_sizes"],
@@ -2056,14 +2552,16 @@ def main() -> int:
         # K1's launches on each path's run (counts set to 0 just before):
         # one V1 forward (base, large), one iSTFT-engine forward, the eight
         # B = 64 serving batches at depth 4, the long-form recording's one
-        # batch of 8 windows, the CLI's three vocoder calls
+        # batch of 8 windows, the CLI's three vocoder calls, and the same
+        # three from the trainer's last_ checkpoint (training launches none)
         "launches_by_path": {
             "I_ea_hubert_base_v1": path["launches"],
             "I_ea_hubert_large_v1": large_launches,
             "istft_engine": istft["launches"],
             "serving_b64_depth4_8_batches": serving["launches"],
             "longform_60s": longform["launches"],
-            "cli_predict_ea": cli["launches"]},
+            "cli_predict_ea": cli["launches"],
+            "train_ea_cli_predict_ea_from_last": tcli["launches"]},
         # the worst over the three checks: V1's 12 (C, K) shapes at B=2,
         # T=2049, the main path's 12 shapes at B=4, and the edge shapes
         "max_abs_err": max(errs["f32_max_abs_err"], timed["float32"]["err"],

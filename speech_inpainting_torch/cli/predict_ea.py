@@ -18,9 +18,12 @@ same inpainter (`infer/longform.py`), any number of `--mask` spans:
       --hubert-checkpoint ... --hifigan-checkpoint ... --kmeans model.npy
 
 Checkpoints: the encoder as a reference `CustomModel` state dict
-(.pt/.pth/.bin) or the JAX package's numpy pickle of its `EncoderWithHead`
-tree (.pkl); the generator as a reference `g_*` file or a numpy pickle of
-its `Generator` tree (.pkl). Orbax checkpoint directories are not read.
+(.pt/.pth/.bin), the JAX package's numpy pickle of its `EncoderWithHead`
+tree (.pkl), or a `best_`/`last_` file of the port's trainer
+(`cli/train_ea.py`: `{"model": state_dict}` of the trainable model, whose
+weight norm is folded at load); the generator as a reference `g_*` file or
+a numpy pickle of its `Generator` tree (.pkl). Orbax checkpoint directories
+are not read.
 Runs on the CUDA card; `--device cpu` runs on the CPU.
 """
 from __future__ import annotations
@@ -34,13 +37,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..convert.from_jax import generator_from_jax, hubert_from_jax
+from ..convert.from_jax import inference_hubert
 from ..convert.hifigan_torch import load_generator_checkpoint
 from ..convert.hubert_torch import convert_custom_model
 from ..data.audio import load_wav, save_wav
 from ..infer.inpaint import InformedInpainter, InpainterConfig
 from ..models.hifigan import HiFiGANConfig
-from ..models.hubert import HubertConfig
+from ..models.hubert import EncoderWithHead, HubertConfig
 from ..ops.masking import mask_wave_frames
 from ..quantize.kmeans import KMeans
 
@@ -69,6 +72,17 @@ def _pickle(path: str) -> dict:
         return pickle.load(fh)
 
 
+def load_trained_hubert(path, cfg: HubertConfig, device) -> EncoderWithHead:
+    """A trainer's `best_`/`last_` file → the inference EncoderWithHead on
+    `device`, weight norm folded, convs and dense layers stored in
+    cfg.dtype, its head as wide as the checkpoint's."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)["model"]
+    model = EncoderWithHead(cfg, sd["head.linear.weight"].shape[0],
+                            weight_norm=True)
+    model.load_state_dict(sd)
+    return inference_hubert(model.to(device))
+
+
 def load_inpainter(args) -> InformedInpainter:
     """The inpainter of the CLI's checkpoints, on `args.device`."""
     centroids = KMeans.load_auto(args.kmeans).centroids
@@ -87,10 +101,13 @@ def load_inpainter(args) -> InformedInpainter:
         hubert = convert_custom_model(sd, hcfg, device=device)
     elif ckpt.endswith(".pkl"):
         hp = _pickle(ckpt)
+    elif os.path.isfile(ckpt):
+        hubert = load_trained_hubert(ckpt, hcfg, device)
     else:
         raise _unreadable(ckpt, "--hubert-checkpoint",
-                          "a CustomModel state dict (.pt/.pth/.bin) or a "
-                          "numpy pickle of the EncoderWithHead tree (.pkl)")
+                          "a CustomModel state dict (.pt/.pth/.bin), a "
+                          "numpy pickle of the EncoderWithHead tree (.pkl) "
+                          "or a trainer's best_/last_ file")
 
     ckpt = args.hifigan_checkpoint
     if ckpt.endswith(".pkl"):

@@ -10,6 +10,12 @@ plain `pickle`, without JAX). Two conventions change on the way:
 Plain torch-layout convs ({w, b}) and embedding tables ({weight}) copy across
 as they are. Entry points build on the CUDA card unless `device="cpu"` is
 passed.
+
+The HuBERT trainer takes another form (`trainable_hubert`): float32
+parameters that require grad, the positional conv's (g, v) kept apart;
+`hubert_tree` reads such a model (or its gradients, or an optimizer's
+moments) back into the JAX package's tree, and `inference_hubert` folds it
+into the inference form the loaders above build.
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ from ..models.codegen import (CodeGenerator, CodeGeneratorConfig, FoVQVAE,
 from ..models.hifigan import Generator, HiFiGANConfig
 from ..models.hifigan_fast import FastGenerator
 from ..models.hifigan_istft import ISTFTGenerator, ISTFTGeneratorConfig
-from ..models.hubert import EncoderWithHead, HubertConfig, HubertModel
+from ..models.hubert import (EncoderWithHead, HubertConfig, HubertModel,
+                             init_flax_)
 from ..ops.conv import weight_norm_kernel
 
 
@@ -93,9 +100,12 @@ def _load_norm(norm: nn.Module, p: dict) -> None:
     norm.bias.copy_(_t(p["bias"]))
 
 
-def _load_hubert(enc: HubertModel, hp: dict, dtype: torch.dtype) -> None:
+def _load_hubert(enc: HubertModel, hp: dict, dtype: torch.dtype | None
+                 ) -> None:
     """`HubertModel` tree (base or large) → `enc`; its convs and dense
-    layers then in `dtype`, its norms in float32."""
+    layers then in `dtype` (float32 where None), its norms in float32. A
+    weight-normed positional conv takes (g, v) as they are; a plain one
+    takes the folded weight."""
     fe = hp["feature_extractor"]
     for i, conv in enumerate(enc.feature_extractor.convs):
         conv.weight.copy_(_t(fe[f"conv_{i}_w"]))
@@ -106,12 +116,15 @@ def _load_hubert(enc: HubertModel, hp: dict, dtype: torch.dtype) -> None:
     if "fp_layer_norm" in hp:
         _load_norm(enc.fp_layer_norm, hp["fp_layer_norm"])
     _load_dense(enc.fp_projection, hp["fp_projection"])
-    pc = hp["pos_conv_embed"]
-    v = _t(pc["conv_v"])
-    norm = torch.sqrt(torch.sum(v * v, dim=(0, 1), keepdim=True))
-    enc.pos_conv_embed.conv.weight.copy_(_t(pc["conv_g"])[None, None] * v
-                                         / norm)
-    enc.pos_conv_embed.conv.bias.copy_(_t(pc["conv_b"]))
+    pc, conv = hp["pos_conv_embed"], enc.pos_conv_embed.conv
+    v, g = _t(pc["conv_v"]), _t(pc["conv_g"])[None, None]
+    if nn.utils.parametrize.is_parametrized(conv, "weight"):
+        conv.parametrizations.weight.original0.copy_(g)
+        conv.parametrizations.weight.original1.copy_(v)
+    else:
+        norm = torch.sqrt(torch.sum(v * v, dim=(0, 1), keepdim=True))
+        conv.weight.copy_(g * v / norm)
+    conv.bias.copy_(_t(pc["conv_b"]))
     _load_norm(enc.encoder_layer_norm, hp["encoder_layer_norm"])
     for i, layer in enumerate(enc.layers):
         lp = hp[f"layers_{i}"]
@@ -123,6 +136,13 @@ def _load_hubert(enc: HubertModel, hp: dict, dtype: torch.dtype) -> None:
                     lp["feed_forward"]["output_dense"])
         _load_norm(layer.layer_norm, lp["layer_norm"])
         _load_norm(layer.final_layer_norm, lp["final_layer_norm"])
+    if dtype is not None:
+        _store_in(enc, dtype)
+
+
+def _store_in(enc: HubertModel, dtype: torch.dtype) -> None:
+    """Convs and dense layers stored in `dtype` (their compute type), so
+    that inference pays no cast per call."""
     for m in enc.modules():
         if isinstance(m, (nn.Conv1d, nn.Linear)):
             m.to(dtype)
@@ -139,7 +159,94 @@ def hubert_from_jax(cfg: HubertConfig, params: dict, out_dim: int = 80,
     _load_hubert(model.hubert, params["hubert"], cfg.dtype)
     _load_norm(model.head.layer_norm, params["head"]["layer_norm"])
     _load_dense(model.head.linear, params["head"]["linear"])
+    return model.requires_grad_(False).to(device)
+
+
+def trainable_hubert(cfg: HubertConfig, params: dict | None = None,
+                     out_dim: int = 80, device=None,
+                     generator: torch.Generator | None = None
+                     ) -> EncoderWithHead:
+    """The trainer's EncoderWithHead on `device`: every parameter float32
+    and requiring grad, the positional conv's weight norm kept as (g, v),
+    each weight cast to cfg.dtype per call (flax's param_dtype/dtype
+    split). Its values come from `params` (an `EncoderWithHead` tree), or,
+    where None, from flax's initialisers drawn with `generator`
+    (`models.hubert.init_flax_`)."""
+    device = resolve_device(device)
+    model = EncoderWithHead(cfg, out_dim, weight_norm=True)
+    with torch.no_grad():
+        if params is None:
+            init_flax_(model, generator or torch.Generator())
+        else:
+            _load_hubert(model.hubert, params["hubert"], None)
+            _load_norm(model.head.layer_norm, params["head"]["layer_norm"])
+            _load_dense(model.head.linear, params["head"]["linear"])
     return model.to(device)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def hubert_tree(model: EncoderWithHead, of=lambda p: p) -> dict:
+    """`model`'s `EncoderWithHead` tree under the JAX package's names and
+    layouts (dense kernels (in, out), the positional conv's conv_g (K,)
+    and conv_v), numpy float32: of its parameters, or of `of(p)` for each
+    parameter p (its `.grad`, an optimizer's moment of it). A folded
+    positional conv has no (g, v) and no tree."""
+    enc = model.hubert
+    dense = lambda m: {"kernel": _np(of(m.weight)).T,  # noqa: E731
+                       "bias": _np(of(m.bias))}
+    norm = lambda m: {"scale": _np(of(m.weight)),  # noqa: E731
+                      "bias": _np(of(m.bias))}
+    fe = {}
+    for i, conv in enumerate(enc.feature_extractor.convs):
+        fe[f"conv_{i}_w"] = _np(of(conv.weight))
+        if conv.bias is not None:
+            fe[f"conv_{i}_b"] = _np(of(conv.bias))
+    for name, n in enc.feature_extractor.norms.items():
+        fe[name] = norm(n)
+    pc = enc.pos_conv_embed.conv
+    wn = pc.parametrizations.weight
+    hub = {"feature_extractor": fe, "fp_projection": dense(enc.fp_projection),
+           "pos_conv_embed": {"conv_g": _np(of(wn.original0)).reshape(-1),
+                              "conv_v": _np(of(wn.original1)),
+                              "conv_b": _np(of(pc.bias))},
+           "encoder_layer_norm": norm(enc.encoder_layer_norm)}
+    if isinstance(enc.fp_layer_norm, nn.LayerNorm):
+        hub["fp_layer_norm"] = norm(enc.fp_layer_norm)
+    for i, layer in enumerate(enc.layers):
+        att, ff = layer.attention, layer.feed_forward
+        hub[f"layers_{i}"] = {
+            "attention": {n: dense(getattr(att, n)) for n in
+                          ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "feed_forward": {
+                "intermediate_dense": dense(ff.intermediate_dense),
+                "output_dense": dense(ff.output_dense)},
+            "layer_norm": norm(layer.layer_norm),
+            "final_layer_norm": norm(layer.final_layer_norm)}
+    return {"hubert": hub, "head": {"layer_norm": norm(model.head.layer_norm),
+                                    "linear": dense(model.head.linear)}}
+
+
+@torch.no_grad()
+def inference_hubert(model: EncoderWithHead) -> EncoderWithHead:
+    """A trainable EncoderWithHead → the inference form that
+    `hubert_from_jax` builds, on the same device: weight norm folded, convs
+    and dense layers stored in cfg.dtype, nothing requiring grad. `model`
+    is left as it is."""
+    cfg = model.cfg
+    out = EncoderWithHead(cfg, model.head.linear.out_features).to(
+        next(model.parameters()).device)
+    sd = dict(model.state_dict())
+    p = "hubert.pos_conv_embed.conv."
+    sd[p + "weight"] = model.hubert.pos_conv_embed.conv.weight
+    for k in ("parametrizations.weight.original0",
+              "parametrizations.weight.original1"):
+        sd.pop(p + k)
+    out.load_state_dict(sd)
+    _store_in(out.hubert, cfg.dtype)
+    return out.requires_grad_(False)
 
 
 @torch.no_grad()

@@ -15,7 +15,8 @@ port never imports `transformers`:
     (Linear);
   - a local HF checkpoint directory (`config.json` and
     `pytorch_model.bin`), read with `torch.load`, its keys under `hubert.`
-    where a `HubertForCTC` checkpoint stores them;
+    where a `HubertForCTC` checkpoint stores them, as a module or as the
+    JAX package's parameter tree (`load_hf_tree`, for the trainer);
   - fairseq `HubertModel` keys (`ckpt['model']`, I_da's feature reader).
 Dense weights are (out, in) in all of them; the positional conv's weight
 norm (dim=2, either key style) is folded at load.
@@ -156,15 +157,15 @@ def convert_fairseq_hubert(sd: dict, cfg: HubertConfig,
     return hubert_model_from_jax(cfg, _fairseq_tree(sd, cfg), device=device)
 
 
-def load_hf_pretrained(path, device=None):
-    """A local HF HuBERT checkpoint directory → (HubertConfig, the port's
-    HubertModel in float32 on `device`). Reads
+def load_hf_tree(path) -> tuple[HubertConfig, dict]:
+    """A local HF HuBERT checkpoint directory → (HubertConfig, the JAX
+    package's `HubertModel` tree, numpy float32), as the JAX package's
+    `load_hf_pretrained` returns it (the trainer's `--pretrained`). Reads
     `config.json` and `pytorch_model.bin` (torch.load, weights only); keys
     under a leading `hubert.` (a `HubertForCTC` checkpoint, e.g.
     hubert-large-ls960-ft) are taken from there, and keys the model has no
     use for (`masked_spec_embed`, a CTC head) are ignored. Hub names are
     not resolved: there is no download."""
-    device = resolve_device(device)
     path = Path(path)
     weights = path / "pytorch_model.bin"
     if not weights.is_file():
@@ -178,4 +179,12 @@ def load_hf_pretrained(path, device=None):
     if any(k.startswith("hubert.") for k in sd):
         sd = {k[len("hubert."):]: v for k, v in sd.items()
               if k.startswith("hubert.")}
-    return cfg, convert_hf_hubert(sd, cfg, device=device)
+    return cfg, _hf_tree(sd, cfg)
+
+
+def load_hf_pretrained(path, device=None):
+    """A local HF HuBERT checkpoint directory (`load_hf_tree`) →
+    (HubertConfig, the port's HubertModel in float32 on `device`)."""
+    device = resolve_device(device)
+    cfg, tree = load_hf_tree(path)
+    return cfg, hubert_model_from_jax(cfg, tree, device=device)

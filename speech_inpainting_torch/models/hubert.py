@@ -15,10 +15,22 @@ Inputs and outputs keep the JAX layout: wav (B, T) → (B, frames, D).
 layers compute in it, while the norms, the softmax and the head stay in
 float32. The residual stream is float32 in base, which normalises it
 before the layers, and `cfg.dtype` in large, as flax leaves it there.
+Parameters and compute have separate types, as flax's `param_dtype` and
+`dtype`: each conv and dense weight is cast to `cfg.dtype` per call. The
+inference loaders store them in `cfg.dtype` already (the casts are then
+no-ops); a trainable model keeps float32 parameters, and its positional
+conv keeps weight norm's (g, v) apart (`weight_norm=True`), the weight
+computed from them per call.
+
+`attention_mask` (B, samples), 1 on real samples, masks as flax does: the
+projected features past each utterance's frame count are zeroed before
+the positional conv, and padded keys are left out of every softmax.
+`init_flax_` draws a fresh model from flax's initialisers.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
@@ -74,20 +86,41 @@ class HubertConfig:
             layer_norm_eps=c["layer_norm_eps"],
             feat_proj_layer_norm=c.get("feat_proj_layer_norm", True))
 
+    def feature_lengths(self, sample_lengths):
+        """Conv-stack output lengths for waveform lengths (HF's formula)."""
+        n = sample_lengths
+        for k, s in zip(self.conv_kernel, self.conv_stride):
+            n = (n - k) // s + 1
+        return n
+
+
+def _f32(dtype: torch.dtype) -> torch.dtype:
+    """The type of the float32 parts: float32, or float64 for a float64
+    model (a reference computed wholly in float64)."""
+    return torch.promote_types(dtype, torch.float32)
+
 
 class LayerNorm32(nn.LayerNorm):
-    """LayerNorm computed in float32 whatever the input's type."""
+    """LayerNorm computed in float32 whatever the input's type (float64 for
+    a float64 input)."""
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape,
-                            self.weight.float(), self.bias.float(), self.eps)
+        dt = _f32(x.dtype)
+        return F.layer_norm(x.to(dt), self.normalized_shape,
+                            self.weight.to(dt), self.bias.to(dt), self.eps)
 
 
 class Dense(nn.Linear):
-    """Linear that computes in its weights' type, as flax's Dense(dtype)."""
+    """Linear that computes in `dtype` whatever its weights' type, as
+    flax's Dense(dtype, param_dtype)."""
+
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype):
+        super().__init__(n_in, n_out)
+        self.compute_dtype = dtype
 
     def forward(self, x):
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class FeatureEncoder(nn.Module):
@@ -97,6 +130,7 @@ class FeatureEncoder(nn.Module):
 
     def __init__(self, cfg: HubertConfig):
         super().__init__()
+        self.compute_dtype = cfg.dtype
         chans = (1,) + tuple(cfg.conv_dim)
         self.convs = nn.ModuleList(
             nn.Conv1d(chans[i], chans[i + 1], k, stride=s, bias=cfg.conv_bias)
@@ -111,33 +145,46 @@ class FeatureEncoder(nn.Module):
                 cfg.conv_dim[0], cfg.conv_dim[0], eps=cfg.layer_norm_eps)})
 
     def forward(self, wav):
-        x = wav[:, None, :].to(self.convs[0].weight.dtype)
+        dt = self.compute_dtype
+        x = wav[:, None, :].to(dt)
         for i, conv in enumerate(self.convs):
-            x = conv(x)
+            x = F.conv1d(x, conv.weight.to(dt),
+                         None if conv.bias is None else conv.bias.to(dt),
+                         stride=conv.stride)
             n = self.norms[f"norm_{i}"] if f"norm_{i}" in self.norms else None
             if self.layer_norms:  # over channels, in f32
                 x = n(x.transpose(1, 2)).transpose(1, 2).to(x.dtype)
             elif n is not None:  # GroupNorm(C, C): per channel over time
-                x = F.group_norm(x.float(), n.num_groups, n.weight.float(),
-                                 n.bias.float(), n.eps).to(x.dtype)
+                f = _f32(x.dtype)
+                x = F.group_norm(x.to(f), n.num_groups, n.weight.to(f),
+                                 n.bias.to(f), n.eps).to(x.dtype)
             x = F.gelu(x)
         return x.transpose(1, 2)
 
 
 class PositionalConvEmbedding(nn.Module):
-    """Grouped conv relative positional embedding. Its weight norm (dim=2,
-    one magnitude per tap) is folded into `conv.weight` on load."""
+    """Grouped conv relative positional embedding with weight norm (dim=2,
+    one magnitude per tap). The inference loaders fold it into
+    `conv.weight`; with `weight_norm` the conv keeps (g, v) as torch's
+    weight-norm parametrization (`parametrizations.weight.original0` g,
+    (1, 1, K), and `original1` v) and computes the weight per call."""
 
-    def __init__(self, cfg: HubertConfig):
+    def __init__(self, cfg: HubertConfig, weight_norm: bool = False):
         super().__init__()
         k = cfg.num_conv_pos_embeddings
+        self.compute_dtype = cfg.dtype
         self.conv = nn.Conv1d(cfg.hidden_size, cfg.hidden_size, k,
                               padding=k // 2,
                               groups=cfg.num_conv_pos_embedding_groups)
+        if weight_norm:
+            nn.utils.parametrizations.weight_norm(self.conv, dim=2)
         self.drop_last = k % 2 == 0  # HF's SamePadLayer
 
     def forward(self, x):  # (B, T, H)
-        out = self.conv(x.transpose(1, 2).to(self.conv.weight.dtype))
+        dt, conv = self.compute_dtype, self.conv
+        out = F.conv1d(x.transpose(1, 2).to(dt), conv.weight.to(dt),
+                       conv.bias.to(dt), padding=conv.padding,
+                       groups=conv.groups)
         if self.drop_last:
             out = out[:, :, :-1]
         return F.gelu(out).transpose(1, 2)
@@ -149,22 +196,25 @@ class SelfAttention(nn.Module):
         h = cfg.hidden_size
         self.num_heads = cfg.num_attention_heads
         self.q_proj, self.k_proj, self.v_proj, self.out_proj = (
-            Dense(h, h) for _ in range(4))
+            Dense(h, h, cfg.dtype) for _ in range(4))
 
-    def forward(self, x):
+    def forward(self, x, key_mask=None):
+        """`key_mask` (B, 1, 1, T) bool, True on the keys to attend."""
         B, T, H = x.shape
         heads = lambda t: t.reshape(B, T, self.num_heads, -1).transpose(1, 2)
         q, k, v = heads(self.q_proj(x)), heads(self.k_proj(x)), heads(
             self.v_proj(x))
-        out = F.scaled_dot_product_attention(q, k, v)
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)
         return self.out_proj(out.transpose(1, 2).reshape(B, T, H))
 
 
 class FeedForward(nn.Module):
     def __init__(self, cfg: HubertConfig):
         super().__init__()
-        self.intermediate_dense = Dense(cfg.hidden_size, cfg.intermediate_size)
-        self.output_dense = Dense(cfg.intermediate_size, cfg.hidden_size)
+        self.intermediate_dense = Dense(cfg.hidden_size,
+                                        cfg.intermediate_size, cfg.dtype)
+        self.output_dense = Dense(cfg.intermediate_size, cfg.hidden_size,
+                                  cfg.dtype)
 
     def forward(self, x):
         return self.output_dense(F.gelu(self.intermediate_dense(x)))
@@ -182,11 +232,11 @@ class EncoderLayer(nn.Module):
         self.final_layer_norm = LayerNorm32(cfg.hidden_size,
                                             eps=cfg.layer_norm_eps)
 
-    def forward(self, x):
+    def forward(self, x, key_mask=None):
         if self.pre_ln:
-            x = x + self.attention(self.layer_norm(x))
+            x = x + self.attention(self.layer_norm(x), key_mask)
             return x + self.feed_forward(self.final_layer_norm(x))
-        x = self.layer_norm(x + self.attention(x))
+        x = self.layer_norm(x + self.attention(x, key_mask))
         return self.final_layer_norm(x + self.feed_forward(x))
 
 
@@ -200,54 +250,119 @@ class HubertModel(nn.Module):
     tapped large model applies no LayerNorm at the tap.
     """
 
-    def __init__(self, cfg: HubertConfig):
+    def __init__(self, cfg: HubertConfig, weight_norm: bool = False):
         super().__init__()
+        self.cfg = cfg
         self.pre_ln = cfg.do_stable_layer_norm
         self.feature_extractor = FeatureEncoder(cfg)
         self.fp_layer_norm = (LayerNorm32(cfg.conv_dim[-1],
                                           eps=cfg.layer_norm_eps)
                               if cfg.feat_proj_layer_norm else nn.Identity())
-        self.fp_projection = Dense(cfg.conv_dim[-1], cfg.hidden_size)
-        self.pos_conv_embed = PositionalConvEmbedding(cfg)
+        self.fp_projection = Dense(cfg.conv_dim[-1], cfg.hidden_size,
+                                   cfg.dtype)
+        self.pos_conv_embed = PositionalConvEmbedding(cfg, weight_norm)
         self.encoder_layer_norm = LayerNorm32(cfg.hidden_size,
                                               eps=cfg.layer_norm_eps)
         self.layers = nn.ModuleList(EncoderLayer(cfg)
                                     for _ in range(cfg.num_hidden_layers))
 
-    def forward(self, wav, tap_layer: int | None = None):
+    def forward(self, wav, attention_mask=None, tap_layer: int | None = None):
         x = self.fp_projection(self.fp_layer_norm(self.feature_extractor(wav)))
+        key_mask = None
+        if attention_mask is not None:
+            frames = self.cfg.feature_lengths(attention_mask.sum(-1))
+            valid = (torch.arange(x.shape[1], device=x.device)[None, :]
+                     < frames[:, None])
+            x = x.masked_fill(~valid[:, :, None], 0.0)
+            # a boolean mask: the same softmax as flax's finfo.min bias on
+            # padded keys, since every row keeps its valid keys
+            key_mask = valid[:, None, None, :]
         x = x + self.pos_conv_embed(x)
         if not self.pre_ln:
             x = self.encoder_layer_norm(x)
         for layer in self.layers[:tap_layer]:
-            x = layer(x)
+            x = layer(x, key_mask)
         if self.pre_ln and tap_layer is None:
             x = self.encoder_layer_norm(x)
         return x
 
 
 class PredictionHead(nn.Module):
-    """I_ea head: LayerNorm + Linear → codebook width, in float32."""
+    """I_ea head: LayerNorm + Linear → codebook width, in float32 (`dtype`
+    float64 for a float64 model)."""
 
-    def __init__(self, hidden: int, out_dim: int, eps: float = 1e-5):
+    def __init__(self, hidden: int, out_dim: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.layer_norm = LayerNorm32(hidden, eps=eps)
-        self.linear = Dense(hidden, out_dim)
+        self.linear = Dense(hidden, out_dim, dtype)
 
     def forward(self, x):
         return self.linear(self.layer_norm(x))
 
 
 class EncoderWithHead(nn.Module):
-    """I_ea CustomModel: HuBERT encoder + LayerNorm/Linear head."""
+    """I_ea CustomModel: HuBERT encoder + LayerNorm/Linear head.
+    `weight_norm` keeps the positional conv's (g, v) apart (the trainable
+    form, `convert.from_jax.trainable_hubert`)."""
 
-    def __init__(self, cfg: HubertConfig, out_dim: int = 80):
+    def __init__(self, cfg: HubertConfig, out_dim: int = 80,
+                 weight_norm: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.hubert = HubertModel(cfg)
+        self.hubert = HubertModel(cfg, weight_norm)
         self.head = PredictionHead(cfg.hidden_size, out_dim,
-                                   cfg.layer_norm_eps)
-        self.requires_grad_(False)
+                                   cfg.layer_norm_eps, _f32(cfg.dtype))
 
-    def forward(self, wav):
-        return self.head(self.hubert(wav))
+    def forward(self, wav, attention_mask=None):
+        return self.head(self.hubert(wav, attention_mask))
+
+
+def _flax_normal_(w: torch.Tensor, shape, scale: float,
+                  gen: torch.Generator) -> None:
+    """flax's variance_scaling(scale, "fan_in", "truncated_normal") for a
+    weight of flax's `shape` (the axis before the last is the input, those
+    before it the receptive field, as flax counts them), written into `w`
+    of the same size in the port's layout: a normal truncated at ±2 and
+    scaled so that its std is √(scale / fan_in)."""
+    fan_in = math.prod(shape[:-1])
+    std = math.sqrt(scale / fan_in) / .87962566103423978
+    with torch.no_grad():
+        t = torch.empty(shape)
+        nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        t *= std
+        w.copy_(t.T if len(shape) == 2 else t)
+
+
+@torch.no_grad()
+def init_flax_(model: EncoderWithHead, gen: torch.Generator
+               ) -> EncoderWithHead:
+    """Draw `model`'s parameters from flax's initialisers, as the JAX
+    package's `EncoderWithHead.init` does (the values differ: the stream is
+    `gen`'s, not jax.random's): dense kernels lecun_normal, convs
+    he_normal over flax's (C_out, C_in, K) shapes, the positional conv's
+    v he_normal and g = ‖v‖ per tap, biases zero, norms one and zero."""
+    hub = model.hubert
+    for conv in hub.feature_extractor.convs:
+        _flax_normal_(conv.weight, tuple(conv.weight.shape), 2.0, gen)
+        if conv.bias is not None:
+            conv.bias.zero_()
+    pc = hub.pos_conv_embed.conv
+    v = torch.empty(pc.weight.shape)
+    _flax_normal_(v, tuple(v.shape), 2.0, gen)
+    if nn.utils.parametrize.is_parametrized(pc, "weight"):
+        pc.parametrizations.weight.original0.copy_(
+            torch.sqrt(torch.sum(v * v, dim=(0, 1), keepdim=True)))
+        pc.parametrizations.weight.original1.copy_(v)
+    else:  # g = ‖v‖ folds to w = v
+        pc.weight.copy_(v)
+    pc.bias.zero_()
+    for m in model.modules():
+        if isinstance(m, Dense):
+            _flax_normal_(m.weight, (m.in_features, m.out_features), 1.0,
+                          gen)
+            m.bias.zero_()
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+    return model

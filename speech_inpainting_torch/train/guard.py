@@ -1,0 +1,53 @@
+"""Nonfinite-update guard: a nan/inf gradient update is never applied.
+
+Counterpart of speech_inpainting_tpu/train/guard.py's `all_finite` and
+`skip_if_nonfinite`: a nonfinite gradient skips the whole update (the
+parameters, both AdamW moments and its step count stay as they were) and
+counts the consecutive and the total skips, which the training loop reads
+to abort loudly once the streak passes its budget (`train/run.py`,
+`RunConfig.abort_nonfinite`). `tree_if_finite` waits for I_da training.
+"""
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+
+
+def all_finite(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """0-dim bool tensor: no element of `tensors` is nan or inf (their
+    largest magnitude is finite, which no sum can overflow)."""
+    tensors = [t for t in tensors if t is not None]
+    if not tensors:
+        return torch.tensor(True)
+    return torch.isfinite(torch.nn.utils.get_total_norm(
+        tensors, norm_type=float("inf")))
+
+
+class SkipNonFinite:
+    """The skip wrapper and its state (JAX's `SkipNonFiniteState`):
+    `notfinite_count` consecutive skipped updates, `total_notfinite` all of
+    them."""
+
+    def __init__(self):
+        self.notfinite_count = 0
+        self.total_notfinite = 0
+
+    def __call__(self, grads: Sequence[torch.Tensor],
+                 update: Callable[[], None]) -> None:
+        """Run `update` when every gradient is finite; else skip it and
+        count. Reads one flag from the device."""
+        if bool(all_finite(grads)):
+            update()
+            self.notfinite_count = 0
+        else:
+            self.notfinite_count += 1
+            self.total_notfinite += 1
+
+    def state_dict(self) -> dict:
+        return {"notfinite_count": self.notfinite_count,
+                "total_notfinite": self.total_notfinite}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.notfinite_count = int(sd["notfinite_count"])
+        self.total_notfinite = int(sd["total_notfinite"])

@@ -40,7 +40,8 @@ from speech_inpainting_tpu.models.hubert import EncoderWithHead
 from speech_inpainting_tpu.models.hubert import HubertConfig as JaxConfig
 from speech_inpainting_torch import testing
 from speech_inpainting_torch.convert.from_jax import (generator_from_jax,
-                                                      hubert_from_jax)
+                                                      hubert_from_jax,
+                                                      trainable_hubert)
 from speech_inpainting_torch.models.hifigan import HiFiGANConfig
 from speech_inpainting_torch.models.hubert import HubertConfig
 
@@ -141,6 +142,35 @@ def test_hubert_bf16_computes_in_flax_types(rng, arrangement):
     assert set(k for k in want if k[0] in ("norm", "softmax")) == {
         ("norm", ("float32",)), ("softmax", ("float32",))}
     assert got == want
+
+
+@pytest.mark.parametrize("arrangement", ["base", "large"])
+def test_masked_training_forward_computes_in_flax_types(rng, arrangement):
+    """The trainer's forward: float32 parameters cast to bf16 per call
+    (flax's param_dtype/dtype split), weight norm computed per call, and an
+    attention mask over rows of two lengths. Counted as above, but for the
+    mask's own selects: flax builds a finfo.min bias (and floor-divides the
+    lengths with selects) where the port passes a boolean mask to SDPA, so
+    `select_n` (counted as "lrelu"; HuBERT has no leaky ReLU) is left out
+    on both sides."""
+    cfg = getattr(HubertConfig, arrangement)(**TINY, dtype=torch.bfloat16)
+    params = testing.hubert_tree(cfg, 80, rng)
+    wav = rng.standard_normal((2, 4000)).astype(np.float32) * 0.3
+    mask = (np.arange(4000)[None] < np.array([[4000], [2500]])).astype(
+        np.int32)
+    model = EncoderWithHead(
+        getattr(JaxConfig, arrangement)(**TINY, dtype=jnp.bfloat16),
+        out_dim=80)
+    want = _flax_census(model.apply, {"params": params}, jnp.asarray(wav),
+                        jnp.asarray(mask))
+    port = trainable_hubert(cfg, params, 80, device="cpu")
+    assert all(p.dtype == torch.float32 for p in port.parameters())
+    got = _port_census(port, torch.tensor(wav), torch.tensor(mask))
+    kept = lambda c: {k: n for k, n in c.items()  # noqa: E731
+                      if k[0] != "lrelu"}
+    assert want[("lrelu", ("bfloat16",))] == 1   # the features' zeroing
+    assert kept(want)[("conv", ("bfloat16", "bfloat16"))] == 8
+    assert kept(got) == kept(want)
 
 
 def test_generator_bf16_computes_in_flax_types(rng):

@@ -15,7 +15,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "speech_inpainting_torch"
-BANNED = ("jax", "jaxlib", "flax", "speech_inpainting_tpu", "transformers")
+BANNED = ("jax", "jaxlib", "flax", "speech_inpainting_tpu", "transformers",
+          "optax", "orbax", "safetensors")
 
 
 def _port_modules():
@@ -89,7 +90,9 @@ def test_entry_points_refuse_the_cpu_unasked():
         load_hf_pretrained)
     from speech_inpainting_torch.convert.ida_torch import (
         convert_code_generator, convert_fo_vqvae)
-    from speech_inpainting_torch.convert.from_jax import fo_vqvae_from_jax
+    from speech_inpainting_torch.convert.from_jax import (fo_vqvae_from_jax,
+                                                          trainable_hubert)
+    from speech_inpainting_torch.cli import train_ea
     from speech_inpainting_torch.data.code_dataset import mel_stats_embedder
     from speech_inpainting_torch.models.codegen import FoVQVAEConfig
     from speech_inpainting_torch.quantize.kmeans import fit_kmeans
@@ -124,7 +127,11 @@ def test_entry_points_refuse_the_cpu_unasked():
                  lambda: convert_fo_vqvae({}, FoVQVAEConfig()),
                  lambda: fo_vqvae_from_jax(FoVQVAEConfig(), {}, {}),
                  lambda: mel_stats_embedder(),
-                 lambda: fit_kmeans(np.zeros((4, 2), np.float32), 2)):
+                 lambda: fit_kmeans(np.zeros((4, 2), np.float32), 2),
+                 lambda: trainable_hubert(HubertConfig.base(), None),
+                 lambda: train_ea.main(["--wavs", ".", "--split", "s",
+                                        "--labels-dir", ".", "--kmeans", "k",
+                                        "--checkpoint-path", "c"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
