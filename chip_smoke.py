@@ -122,7 +122,25 @@ it stopped); any failure raises and exits non-zero:
                 directory and a 100 × 80 codebook, twice (2 steps, then a
                 resume from step 2 to 4), then `predict_ea.main` from its
                 `last_` (216 K1 launches); the head from `last_` equal to
-                the trained module (atol 1e-6, f32).
+                the trained module (atol 1e-6, f32);
+  gan_step_parity  one GAN step (vanilla recipe) at V1's full width with
+                the full MPD and MSD, B = 2 × 8192, f32, batched_disc on:
+                card vs CPU (losses rel 1e-5; parameters, gradients,
+                moments and u/v rtol 2e-5 atol 2e-6, or near a float64
+                step, at most 1% of a module's elements outside both),
+                then on the card the second update at the decayed rate, a
+                nan batch under the guard (bit-equal, one skip, u/v
+                advanced) and batched_disc off against on;
+  gan_train     the modified recipe of configs/hifigan_ft_modified.json
+                (V1, full MPD and MSD), B = 16 × 44 288, mask_len 20, a
+                100 × 80 codebook: 8 f32 steps and 8 with disc_bf16 (ms per
+                step by CUDA events, audio-s/s, peak memory, the bound),
+                one f32 step profiled; losses finite, mel_error falling;
+  train_hifigan_cli  `train_hifigan.main --modified` on 32 × 3 s wavs with
+                a 16-wav validation filelist (2 steps and a sweep of 72 K2
+                launches), again resuming 2 → 4, then `predict_ea` (216 K1
+                launches) and `vocode wav2wav` (72 K2 per forward) from the
+                g_ it wrote; that g_ served equal to the module's fold().
 Then the `spills` and `kernels` lines (K1's and K2's launches on each
 path), and last {"ok": true, "device": {...}}.
 
@@ -782,8 +800,8 @@ def phase_ida_main(torch) -> dict:
             "dilations": gcfg.resblock_dilation_sizes, "setup": setup}
 
 
-def _step_inputs(rng, C, T, K, torch, dtype):
-    x, w1, b1, w2, b2 = _resblock_inputs(rng, 1, C, T, K, 1, torch, dtype)
+def _step_inputs(rng, C, T, K, torch, dtype, B=1):
+    x, w1, b1, w2, b2 = _resblock_inputs(rng, B, C, T, K, 1, torch, dtype)
     return x, w1[0], b1[0], w2[0], b2[0]
 
 
@@ -794,16 +812,18 @@ def _ida_shapes(path):
                 yield C, T, K, d
 
 
-def phase_ida_kernel_check(torch, path, name="ida_kernel_check") -> dict:
+def phase_ida_kernel_check(torch, path, name="ida_kernel_check",
+                           B=1) -> dict:
     """K2 vs its plain version at every (C, K, d) of a generator's
-    ResBlock1 steps (the I_da generator's, or V1's for `vocode`), at the
-    path's B = 1 and per-stage T."""
+    ResBlock1 steps (the I_da generator's, V1's for `vocode`, or V1's in
+    the GAN trainer's validation sweep), at the path's B and per-stage
+    T."""
     from speech_inpainting_torch.ops.resblock import (fused_resblock_step,
                                                       resblock_step_reference)
     rng = np.random.default_rng(SEED)
     worst = {"f32_max_abs_err": 0.0, "bf16_rel_err": 0.0, "shapes": 0}
     for C, T, K, d in _ida_shapes(path):
-        f32 = _step_inputs(rng, C, T, K, torch, torch.float32)
+        f32 = _step_inputs(rng, C, T, K, torch, torch.float32, B)
         err = (fused_resblock_step(*f32, d)
                - pinned(resblock_step_reference, *f32, d)).abs().max().item()
         bf = [a.to(torch.bfloat16) for a in f32]
@@ -813,7 +833,7 @@ def phase_ida_kernel_check(torch, path, name="ida_kernel_check") -> dict:
         torch.cuda.synchronize()
         ok = err <= F32_ATOL and rel <= BF16_RTOL
         emit({"phase": name, "C": C, "K": K, "dilation": d,
-              "B": 1, "T": T, "f32_max_abs_err": err, "f32_atol": F32_ATOL,
+              "B": B, "T": T, "f32_max_abs_err": err, "f32_atol": F32_ATOL,
               "bf16_rel_err": rel, "bf16_rtol": BF16_RTOL, "ok": ok})
         if not ok:
             raise AssertionError(f"fused_resblock_step disagrees at C={C} "
@@ -1455,6 +1475,7 @@ def phase_cli(torch, large) -> dict:
 # ------------------------------------------ the I_da paths as users run them
 
 CONFIGS = Path(__file__).resolve().parent / "configs"
+GAN_CONFIG = CONFIGS / "hifigan_ft_modified.json"
 IDA_CLI_MASKS_MS = (100, 200, 300, 400)    # inpaint_da's default masks
 # tests/test_codegen.py:144-160's content-VQ geometry (no content-VQ config
 # file is in the repository) with the generator 64 wide, not 16: K2 takes
@@ -2254,9 +2275,11 @@ def _timed_steps(torch, step, state, batch, warmup, iters) -> tuple:
 
 def _profile_step(torch, step, state, batch, top=12) -> dict:
     """One step under torch.profiler (CPU and CUDA activities): the kernels
-    that took the most device time, the kernels' total, and that total
-    over the step's time between two CUDA events (the device's busy share;
-    "not measured" where the trace holds no device time)."""
+    that took the most device time, the kernels' total, and the device's
+    busy share: the union of the kernels' time spans over the step's time
+    between two CUDA events (kernels may overlap, as cuDNN's do on its own
+    streams, so their summed time can exceed the step's); "not measured"
+    where the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     with profile(activities=[ProfilerActivity.CPU,
@@ -2277,12 +2300,27 @@ def _profile_step(torch, step, state, batch, top=12) -> dict:
     events = [e for e in averages
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.key not in host and dev(e) > 0]
-    busy_ms = sum(dev(e) for e in events)
+    kernel_ms = sum(dev(e) for e in events)
     if not events:
         return {"step_ms": step_ms, "busy_share": "not measured"}
+    busy = {"busy_share": "not measured"}
+    try:
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.name not in host)
+    except AttributeError as err:     # a profiler without kernel spans
+        busy["busy_error"] = str(err)
+        spans = []
+    if spans:
+        busy_us, end = 0.0, -math.inf
+        for lo, hi in spans:
+            busy_us += max(0.0, hi - max(lo, end))
+            end = max(end, hi)
+        busy = {"busy_ms": busy_us / 1e3,
+                "busy_share": busy_us / 1e3 / step_ms}
     events.sort(key=dev, reverse=True)
-    return {"step_ms": step_ms, "device_ms": busy_ms,
-            "busy_share": busy_ms / step_ms,
+    return {"step_ms": step_ms, "device_ms": kernel_ms, **busy,
             "top": [{"name": e.key[:90], "ms": dev(e), "calls": e.count}
                     for e in events[:top]]}
 
@@ -2466,6 +2504,537 @@ def phase_train_ea_cli(torch) -> dict:
     return row
 
 
+# ------------------------------------------------------ the GAN trainer
+
+GAN_LR = 2e-4        # GANConfig's learning rate (configs/hifigan_*.json)
+GAN_SR = 22050
+GAN_SEG = 44288      # configs/hifigan_ft_modified.json's segment_size
+GAN_B = 16           # its batch_size
+
+
+def _conv_len(n, k, s, p):
+    return (n + 2 * p - k) // s + 1
+
+
+def gan_flops(gcfg, B, seg) -> dict:
+    """Forward FLOP (a multiply-add counts 2) of the generator on B crops of
+    `seg` samples, and of the MPD and MSD together on B waveforms."""
+    T = 1 + (seg + 768 - 1024) // 256           # VOCODER_MEL_22K frames
+    c = gcfg.upsample_initial_channel
+    gen = 2 * B * T * c * gcfg.in_dim * 7
+    ch = c
+    for i, (u, k) in enumerate(zip(gcfg.upsample_rates,
+                                   gcfg.upsample_kernel_sizes)):
+        ch = c // 2 ** (i + 1)
+        gen += 2 * B * T * 2 * ch * ch * k       # each input spreads ch·k
+        T *= u
+        for rk, rd in zip(gcfg.resblock_kernel_sizes,
+                          gcfg.resblock_dilation_sizes):
+            gen += 2 * B * T * ch * ch * rk * 2 * len(rd)
+    gen += 2 * B * T * ch * 7
+    disc = 0
+    for p in (2, 3, 5, 7, 11):
+        H, c_in = -(-seg // p), 1
+        for c_out, s, pad, k in ((32, 3, 2, 5), (128, 3, 2, 5),
+                                 (512, 3, 2, 5), (1024, 3, 2, 5),
+                                 (1024, 1, 2, 5), (1, 1, 1, 3)):
+            H = _conv_len(H, k, s, pad)
+            disc += 2 * B * H * p * c_out * c_in * k
+            c_in = c_out
+    L = seg
+    for i in range(3):
+        if i:
+            L = _conv_len(L, 4, 2, 2)
+        n, c_in = L, 1
+        for f, k, s, g, pd in ((128, 15, 1, 1, 7), (128, 41, 2, 4, 20),
+                               (256, 41, 2, 16, 20), (512, 41, 4, 16, 20),
+                               (1024, 41, 4, 16, 20), (1024, 41, 1, 16, 20),
+                               (1024, 5, 1, 1, 2), (1, 3, 1, 1, 1)):
+            n = _conv_len(n, k, s, pd)
+            disc += 2 * B * n * f * (c_in // g) * k
+            c_in = f
+    return {"generator": gen, "discriminators": disc}
+
+
+def gan_step_bound_ms(gcfg, B, seg, n_params, disc_bf16) -> dict:
+    """The least time of one GAN step: its FLOP over the peak rate of each
+    part's type (the generator in full f32; the discriminators in f32, or
+    bf16 on the tensor cores with disc_bf16), plus AdamW's bytes over the
+    memory rate. FLOP: the generator's forward and backward (3× its
+    forward); the discriminators' D phase (real and fake forward, weight
+    and input gradients: 6× one forward over B) and G phase (real and
+    fake forward, the fake's input gradient only: 3×)."""
+    f = gan_flops(gcfg, B, seg)
+    gen_ms = 1e3 * 3 * f["generator"] / PEAK_FLOPS["float32"]
+    disc_ms = 1e3 * 9 * f["discriminators"] / PEAK_FLOPS[
+        "bfloat16" if disc_bf16 else "float32"]
+    adamw_ms = 1e3 * 7 * 4 * n_params / PEAK_BYTES
+    return {"generator_forward_tflop": f["generator"] / 1e12,
+            "discriminators_forward_tflop": f["discriminators"] / 1e12,
+            "step_tflop": (3 * f["generator"] + 9 * f["discriminators"])
+            / 1e12, "params_millions": n_params / 1e6,
+            "bound_by": "operations",
+            "bound_ms": gen_ms + disc_ms + adamw_ms}
+
+
+def _gan_cfg(path, seg, mask_len=20, **gan):
+    from speech_inpainting_torch.models.hifigan import HiFiGANConfig
+    from speech_inpainting_torch.train.gan import GANConfig
+    from speech_inpainting_torch.train.hifigan import HiFiGANTrainConfig
+    gcfg = HiFiGANConfig.from_dict(json.loads(path.read_text()))
+    return HiFiGANTrainConfig(gan=GANConfig(batched_disc=True, **gan),
+                              hifigan=gcfg, segment_size=seg,
+                              mask_len=mask_len)
+
+
+def _gan_trees(torch, gcfg, rng):
+    """One seeded tree of all three modules: a generator whose weights
+    carry the signal (testing.generator_tree's carry=True), the
+    discriminators at the port's init."""
+    from speech_inpainting_torch.convert.from_jax import (mpd_from_jax,
+                                                          mpd_tree,
+                                                          msd_from_jax,
+                                                          msd_tree,
+                                                          spectral_tree)
+    from speech_inpainting_torch.testing import generator_tree
+    seed = int(rng.integers(1 << 30))
+    mpd = mpd_from_jax(device="cpu",
+                       generator=torch.Generator().manual_seed(seed))
+    msd = msd_from_jax(device="cpu",
+                       generator=torch.Generator().manual_seed(seed + 1))
+    return (generator_tree(gcfg, rng, carry=True), mpd_tree(mpd),
+            msd_tree(msd), spectral_tree(msd))
+
+
+def _gan_state(torch, tcfg, trees, device, f64=False):
+    """A GANTrainState on `device` from the trees; f64 computes and stores
+    everything in float64 (the reference step)."""
+    from speech_inpainting_torch.convert.from_jax import (mpd_from_jax,
+                                                          msd_from_jax,
+                                                          trainable_generator)
+    from speech_inpainting_torch.train.gan import create_gan_state
+    g, mp, mv, spec = trees
+    ddt = torch.bfloat16 if tcfg.gan.disc_bf16 else torch.float32
+    mods = (trainable_generator(tcfg.hifigan, g, device=device),
+            mpd_from_jax(mp, dtype=ddt, device=device),
+            msd_from_jax(mv, spec, dtype=ddt, device=device))
+    if f64:
+        for m in mods:
+            m.double()
+            for c in m.modules():
+                if hasattr(c, "dtype"):
+                    c.dtype = torch.float64
+    return create_gan_state(tcfg.gan, *mods)
+
+
+def _gan_audio(rng, B, seg):
+    from speech_inpainting_torch.testing import synthetic_batch
+    return synthetic_batch(rng, B, seg / GAN_SR + 0.01)[0][:, None, :seg]
+
+
+def _gan_named(torch, state) -> dict:
+    """{(kind, name): float64 CPU tensor} of a state's parameters, their
+    gradients, both AdamW moments and the MSD's u/v."""
+    out = {}
+    for mname in ("generator", "mpd", "msd"):
+        module = getattr(state, mname)
+        opt = state.g_opt if mname == "generator" else state.d_opt
+        for n, p in module.named_parameters():
+            st = opt.state.get(p, {})
+            for kind, t in (("param", p), ("grad", p.grad),
+                            ("mu", st.get("exp_avg")),
+                            ("nu", st.get("exp_avg_sq"))):
+                if t is not None:
+                    out[(kind, f"{mname}.{n}")] = t.detach().double().cpu()
+        if mname == "msd":
+            for n, b in module.named_buffers():
+                out[("u/v", f"msd.{n}")] = b.double().cpu()
+    return out
+
+
+def _gan_tensors(torch, state) -> dict:
+    """_gan_named with "kind name" keys."""
+    return {f"{k} {n}": t for (k, n), t in _gan_named(torch, state).items()}
+
+
+def _gan_gaps(a, b, r) -> dict:
+    """`a` against `b` (`_gan_tensors` of two float32 states after the same
+    step from the same start: the card's and the CPU's), with `r`, the
+    CPU's float64 step, beside them, by testing.parity_gate per tensor
+    (every parameter, gradient, AdamW moment and u/v): an element passes
+    within rtol 2e-5, atol 2e-6 of the CPU's, or within its tensor's
+    float64 tolerance (1e-4 of its largest magnitude, or 4 × the CPU's
+    own float32 gap) of float64. Each tensor may hold testing.NOISE_SHARE
+    of its elements outside both (NOISE_LEAST at the least), each within
+    NOISE_EXCESS × the tolerance: a leaky ReLU input within rounding of
+    its kink (several a step at these widths) takes its slope by the
+    rounding's sign and moves every gradient behind it. A parameter
+    element outside whose gradient is zero up to rounding (its float64
+    first moment within the moment's tolerance of zero) is held to AdamW's
+    noise bound instead."""
+    from speech_inpainting_torch.testing import (ADAMW_NOISE, parity_gate,
+                                                 zero_up_to_rounding)
+    mu = [k for k in b if k.startswith("mu ")]
+    zero = zero_up_to_rounding({k: b[k] for k in mu}, {k: r[k] for k in mu})
+    zero = {"param " + k[3:]: m for k, m in zero.items()}
+    rep = parity_gate(a, b, r, exempt=zero, bound=ADAMW_NOISE * GAN_LR)
+    kinds = sorted({k.split(" ")[0] for k in rep["f64"]})
+    return {"outside": rep["outside"], "exempt": rep["exempt"],
+            "share_max": rep["share_max"], "excess_max": rep["excess_max"],
+            "f64_tensor_counts": {k: sum(n.startswith(k + " ")
+                                         for n in rep["f64"])
+                                  for k in kinds},
+            "failed": rep["failed"], "ok": rep["ok"]}
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_gan_step_parity(torch) -> dict:
+    """The GAN step at full width on the card against the CPU:
+    configs/hifigan_v1.json (512 channels), the full MPD and MSD, the
+    vanilla recipe, B = 2 × 8192, f32, batched_disc on, steps_per_epoch =
+    1 (so the second update runs at the decayed rate), one seeded tree
+    (`_gan_trees`). One step on the card and on the CPU, and in float64
+    on the CPU: loss_disc, loss_gen_all and mel_error rel 1e-5; every
+    parameter, gradient, moment and u/v by `_gan_gaps`. Then on the card:
+    a second step, whose update must be the decayed rate's (conv_post's
+    kernel direction v, computed in float64 as p − lr·0.999·u from its own
+    moments, ten times closer than undecayed lr gives: the rates differ by
+    2e-7 of a step, a few ulps of v); a nan batch with skip_nonfinite after
+    a finite step (parameters, moments and counts bit-equal, one skip, the
+    u/v of scale 0's seven wide convs advanced: conv_post's u is its one
+    output, 1, and its v then W's own direction); and batched_disc off
+    against on (losses rel 1e-6; every tensor by `_gan_gaps` beside the
+    CPU's float64 step)."""
+    from speech_inpainting_torch.train.hifigan import make_vanilla_step
+    rng = np.random.default_rng(SEED + 170)
+    tcfg = _gan_cfg(CONFIGS / "hifigan_v1.json", 8192, steps_per_epoch=1)
+    trees = _gan_trees(torch, tcfg.hifigan, rng)
+    batch = {"audio": _gan_audio(rng, 2, 8192)}
+    step = make_vanilla_step(tcfg)
+    t0 = time.perf_counter()
+    card, mc = step(_gan_state(torch, tcfg, trees, "cuda"), batch)
+    mc = {k: float(v) for k, v in mc.items()}
+    cpu, mp = step(_gan_state(torch, tcfg, trees, "cpu"), batch)
+    mp = {k: float(v) for k, v in mp.items()}
+    batch64 = {"audio": batch["audio"].astype(np.float64)}
+    ref, _ = step(_gan_state(torch, tcfg, trees, "cpu", f64=True), batch64)
+    r = _gan_tensors(torch, ref)
+    gaps = _gan_gaps(_gan_tensors(torch, card), _gan_tensors(torch, cpu), r)
+    del cpu, ref
+    rels = {k: _rel(mc[k], mp[k]) for k in mc}
+    # the second update, at lr·0.999 (its count is 1)
+    v = card.generator.conv_post.weight_v
+    before = v.detach().double().clone()
+    batch2 = {"audio": _gan_audio(rng, 2, 8192)}
+    card, _ = step(card, batch2)
+    st = card.g_opt.state[v]
+    u = ((st["exp_avg"].double() / (1 - 0.8 ** 2))
+         / ((st["exp_avg_sq"].double() / (1 - 0.99 ** 2)).sqrt() + 1e-8)
+         + 0.01 * before)
+    lr2 = float(np.float32(GAN_LR) * np.float32(0.999))
+    decay = {key: float((v.detach().double() - (before - lr * u)).abs().max())
+             for key, lr in (("decayed", lr2), ("undecayed", GAN_LR))}
+    decay_ok = decay["decayed"] * 10 < decay["undecayed"]
+    del card
+    # a nan batch under the guard, after a finite step
+    from speech_inpainting_torch.train.hifigan import make_vanilla_step as mk
+    gcfg = dataclasses.replace(tcfg, gan=dataclasses.replace(
+        tcfg.gan, skip_nonfinite=5))
+    gstep = mk(gcfg)
+    guarded, _ = gstep(_gan_state(torch, gcfg, trees, "cuda"), batch)
+    snap = {k: v.clone() for k, v in _gan_named(torch, guarded).items()
+            if k[0] != "grad"}
+    counts = [s["step"] for o in (guarded.g_opt, guarded.d_opt)
+              for s in o.state.values()]
+    bad = {"audio": batch2["audio"].copy()}
+    bad["audio"][1, 0, 100] = np.nan
+    guarded, mb = gstep(guarded, bad)
+    after = _gan_named(torch, guarded)
+    skip_equal = all(torch.equal(after[k], v) for k, v in snap.items()
+                     if k[0] != "u/v") and counts == [
+        s["step"] for o in (guarded.g_opt, guarded.d_opt)
+        for s in o.state.values()]
+    uv_moved = sum(not torch.equal(after[k], v) for k, v in snap.items()
+                   if k[0] == "u/v")
+    skips = (int(mb["nonfinite_skips"]), guarded.g_guard.notfinite_count,
+             guarded.d_guard.notfinite_count)
+    del guarded
+    # batched_disc off against on, on the card
+    ucfg = dataclasses.replace(tcfg, gan=dataclasses.replace(
+        tcfg.gan, batched_disc=False))
+    on_, m_on = step(_gan_state(torch, tcfg, trees, "cuda"), batch)
+    off, m_off = make_vanilla_step(ucfg)(
+        _gan_state(torch, ucfg, trees, "cuda"), batch)
+    batched_rel = max(_rel(float(m_on[k]), float(m_off[k])) for k in m_on)
+    batched = _gan_gaps(_gan_tensors(torch, off), _gan_tensors(torch, on_),
+                        r)
+    del on_, off, r
+    ok = (max(rels[k] for k in ("loss_disc", "loss_gen_all", "mel_error"))
+          <= 1e-5 and gaps["ok"] and decay_ok and skip_equal
+          and uv_moved == 14 and skips == (1, 1, 1) and batched_rel <= 1e-6
+          and batched["ok"])
+    row = {"phase": "gan_step_parity", "config": "hifigan_v1.json",
+           "B": 2, "samples": 8192, "dtype": "float32",
+           "metrics_card": mc, "metrics_cpu": mp, "metrics_rel": rels,
+           "card_vs_cpu": gaps, "second_update_gap": decay,
+           "skip_bit_equal": skip_equal, "skips": skips,
+           "uv_tensors_advanced_on_skip": uv_moved,
+           "batched_vs_two_calls_metrics_rel": batched_rel,
+           "two_calls_vs_batched": batched,
+           "seconds": time.perf_counter() - t0, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("GAN step parity check failed")
+    return row
+
+
+def phase_gan_train(torch) -> dict:
+    """The modified recipe at full width: configs/hifigan_ft_modified.json
+    (V1, 512 channels, the full MPD and MSD), B = 16 × 44 288 samples
+    (32.1 s of audio a step), mask_len 20, a 100 × 80 codebook of the
+    batch's own hop-441 mel frames moved by noise, batched_disc on, one
+    fixed batch, the CLI's init (generator from seed 1234, discriminators
+    from 1 and 2). Eight f32 steps, then eight with disc_bf16 from the same
+    init: ms per step by CUDA events (the first step, with cuDNN's
+    algorithm choice, apart; median, min and max of the other seven),
+    trained audio-s per s, peak memory, the bound (`gan_step_bound_ms`);
+    one more f32 step under torch.profiler. Gates: every loss finite, and
+    mel_error over each run's last three steps below its first step's."""
+    from speech_inpainting_torch.convert.from_jax import trainable_generator
+    from speech_inpainting_torch.ops.mel import (MODIFIED_MEL_22K,
+                                                 mel_spectrogram)
+    from speech_inpainting_torch.train.gan import (create_gan_state,
+                                                   default_discriminators)
+    from speech_inpainting_torch.train.hifigan import make_modified_step
+    rng = np.random.default_rng(SEED + 180)
+    audio = _gan_audio(rng, GAN_B, GAN_SEG)
+    frames = pinned(mel_spectrogram, torch.as_tensor(audio[:, 0]),
+                    MODIFIED_MEL_22K).transpose(1, 2).reshape(-1, 80).numpy()
+    centroids = (frames[rng.choice(len(frames), 100, replace=False)]
+                 + 0.05 * rng.standard_normal((100, 80))).astype(np.float32)
+    n441 = MODIFIED_MEL_22K.num_frames(GAN_SEG) - 20
+    batch = {"audio": torch.as_tensor(audio, device="cuda"),
+             "mask_start": torch.as_tensor(rng.integers(0, n441, GAN_B)
+                                           .astype(np.int32), device="cuda")}
+    audio_s = GAN_B * GAN_SEG / GAN_SR
+    rows, ok = {}, True
+    for name, bf16 in (("f32", False), ("bf16_disc", True)):
+        tcfg = _gan_cfg(GAN_CONFIG, GAN_SEG, disc_bf16=bf16)
+        torch.cuda.reset_peak_memory_stats()
+        gen = trainable_generator(
+            tcfg.hifigan, device="cuda",
+            generator=torch.Generator().manual_seed(1234))
+        state = create_gan_state(tcfg.gan, gen,
+                                 *default_discriminators(tcfg.gan, "cuda"))
+        n_params = sum(p.numel() for m in (state.generator, state.mpd,
+                                           state.msd)
+                       for p in m.parameters())
+        step = make_modified_step(tcfg, centroids)
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) for _ in range(8)]
+        metrics = []
+        t0 = time.perf_counter()
+        for a, b in events:
+            a.record()
+            state, m = step(state, batch)
+            b.record()
+            metrics.append(m)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ms = [a.elapsed_time(b) for a, b in events]
+        metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+        med = float(np.median(ms[1:]))
+        mel = [m["mel_error"] for m in metrics]
+        finite = all(np.isfinite(v) for m in metrics for v in m.values())
+        ok &= finite and max(mel[-3:]) < mel[0]
+        rows[name] = {
+            "first_step_ms": ms[0], "ms_per_step_median": med,
+            "ms_per_step_min": min(ms[1:]), "ms_per_step_max": max(ms[1:]),
+            "ms_per_step": ms, "wall_s_8_steps": wall,
+            "audio_seconds_per_second": audio_s / (med / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "mel_error": mel, "loss_disc": [m["loss_disc"] for m in metrics],
+            "loss_gen_all": [m["loss_gen_all"] for m in metrics],
+            **gan_step_bound_ms(tcfg.hifigan, GAN_B, GAN_SEG, n_params,
+                                bf16)}
+        if name == "f32":
+            rows["f32_profile"] = _profile_step(torch, step, state, batch)
+        del state, step, gen
+    row = {"phase": "gan_train", "config": "hifigan_ft_modified.json",
+           "recipe": "modified", "B": GAN_B, "samples": GAN_SEG,
+           "mask_len": 20, "codebook": [100, 80],
+           "audio_seconds_per_step": audio_s, **rows, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("GAN training run check failed")
+    return row
+
+
+def phase_train_hifigan_cli(torch) -> dict:
+    """`train_hifigan.main`, then `predict_ea.main` and `vocode.main` from
+    what it trained, on the card, as a user runs them, on files written to
+    a temporary directory: 32 synthetic 3 s 22.05 kHz wavs (train
+    filelist), 16 more (valid filelist), a 100 × 80 .npy codebook.
+    `--modified --kmeans km.npy --config configs/hifigan_ft_modified.json
+    --batch-size 16 --epochs 1 --validation-interval 2` (2 steps, one
+    validation sweep of one B = 16 batch through the folded generator: 72
+    K2 launches); the same command again, which resumes 2 → 4 (another
+    sweep); then `predict_ea --hifigan-checkpoint g_00000004` (a
+    HuBERT-base CustomModel .pt, labels given: 216 K1 launches) and
+    `vocode wav2wav --checkpoint g_00000004` on two of the wavs (72 K2
+    launches per forward). Gates: the checkpoints, the resume, the
+    launches, every artifact written, and the generator loaded from g_
+    equal to the trained module's fold() (waveform gap 0, at most 1e-6)."""
+    import tempfile
+    from scipy.io import wavfile
+    from speech_inpainting_torch.cli import predict_ea, train_hifigan, vocode
+    from speech_inpainting_torch.convert.hifigan_torch import (
+        load_generator_checkpoint)
+    from speech_inpainting_torch.device import full_f32
+    from speech_inpainting_torch.models.hifigan import Generator
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    from speech_inpainting_torch.ops.resblock import (fused_resblock1,
+                                                      fused_resblock_step)
+    from speech_inpainting_torch.testing import (custom_model_state_dict,
+                                                 hubert_tree,
+                                                 synthetic_batch)
+    rng = np.random.default_rng(SEED + 190)
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        (d / "wavs").mkdir()
+        (d / "voc").mkdir()
+        wavs = synthetic_batch(rng, 48, 3.0)[0]
+        names = [f"utt{i:02d}" for i in range(48)]
+        for n, w in zip(names, wavs):
+            _write_wav(d / "wavs" / f"{n}.wav", w, GAN_SR)
+        for n in names[:2]:
+            _write_wav(d / "voc" / f"{n}.wav", wavs[names.index(n)], GAN_SR)
+        (d / "train.txt").write_text("\n".join(names[:32]) + "\n")
+        (d / "valid.txt").write_text("\n".join(names[32:]) + "\n")
+        np.save(d / "km.npy", rng.standard_normal((100, 80)).astype(
+            np.float32) - 5.0)
+        hcfg = HubertConfig.base()
+        torch.save(custom_model_state_dict(hubert_tree(hcfg, 80, rng), hcfg),
+                   d / "best.pt")
+        np.save(d / "labels.npy", rng.integers(0, 100, 200))
+        setup_s = time.perf_counter() - t_start
+        cmd = ["--wavs", str(d / "wavs"), "--filelist", str(d / "train.txt"),
+               "--valid-filelist", str(d / "valid.txt"), "--config",
+               str(GAN_CONFIG), "--modified", "--kmeans", str(d / "km.npy"),
+               "--checkpoint-path", str(d / "ckpt"), "--batch-size", "16",
+               "--epochs", "1", "--validation-interval", "2", "--device",
+               "cuda"]
+        runs = []
+        for _ in range(2):
+            fused_resblock_step.launches = 0
+            t0 = time.perf_counter()
+            state = train_hifigan.main(cmd)
+            torch.cuda.synchronize()
+            runs.append({"seconds": time.perf_counter() - t0,
+                         "end_step": state.step,
+                         "validation_k2_launches":
+                             fused_resblock_step.launches,
+                         "checkpoints": sorted(
+                             p.name for p in (d / "ckpt").iterdir())})
+        g_file = d / "ckpt" / "g_00000004"
+        gcfg = state.generator.cfg
+        sweep = _sweep_check(torch, state.generator, wavs[32:48])
+        mel = torch.as_tensor(rng.standard_normal((1, 80, 64)).astype(
+            np.float32) - 5.0, device="cuda")
+        loaded = load_generator_checkpoint(g_file, gcfg, device="cuda",
+                                           cls=Generator)
+        with torch.no_grad(), full_f32():
+            fold_gap = float((loaded(mel) - state.generator.fold()(mel))
+                             .abs().max())
+        del state, loaded
+        fused_resblock1.launches = 0
+        t0 = time.perf_counter()
+        predict_ea.main(["--wav", str(d / "voc" / "utt00.wav"),
+                         "--start-sec", "1.5", "--end-sec", "1.7",
+                         "--labels", str(d / "labels.npy"),
+                         "--hubert-checkpoint", str(d / "best.pt"),
+                         "--hubert-type", "base", "--hifigan-checkpoint",
+                         str(g_file), "--kmeans", str(d / "km.npy"),
+                         "--out", str(d / "pred"), "--device", "cuda"],
+                        figures=False)
+        predict_s = time.perf_counter() - t0
+        k1 = fused_resblock1.launches
+        predicted = sorted(p.name for p in (d / "pred" / "utt00").iterdir())
+        fused_resblock_step.launches = 0
+        t0 = time.perf_counter()
+        vocode.main(["wav2wav", "--input-dir", str(d / "voc"),
+                     "--checkpoint", str(g_file), "--config",
+                     str(GAN_CONFIG), "--out", str(d / "gen"), "--device",
+                     "cuda"])
+        torch.cuda.synchronize()
+        vocode_s = time.perf_counter() - t0
+        k2_vocode = fused_resblock_step.launches
+        vocoded = sorted(p.name for p in (d / "gen").iterdir())
+    per_forward = 72
+    ok = (runs[0]["end_step"] == 2 and runs[1]["end_step"] == 4
+          and runs[0]["checkpoints"] == ["do_00000002", "g_00000002"]
+          and runs[1]["checkpoints"] == ["do_00000002", "do_00000004",
+                                         "g_00000002", "g_00000004"]
+          and all(r["validation_k2_launches"] == per_forward for r in runs)
+          and k1 == 3 * 72 and k2_vocode == 2 * per_forward
+          and len(vocoded) == 2 and {"inpainted.wav", "hifi_masked.wav"}
+          <= set(predicted) and fold_gap <= 1e-6 and sweep["ok"])
+    row = {"phase": "train_hifigan_cli", "wavs": 32, "valid_wavs": 16,
+           "seconds_per_wav": 3.0, "setup_seconds": setup_s, "runs": runs,
+           "g_vs_fold_waveform_gap": fold_gap, "validation_sweep": sweep,
+           "predict_ea_k1_launches": k1, "predict_seconds": predict_s,
+           "vocode_k2_launches": k2_vocode,
+           "vocode_k2_launches_per_forward": k2_vocode // 2,
+           "vocode_seconds": vocode_s, "predicted": predicted,
+           "vocoded": vocoded, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("train_hifigan CLI check failed")
+    errs = phase_ida_kernel_check(torch, sweep["path"], B=GAN_B,
+                                  name="gan_valid_kernel_check")
+    return {**row, "kernel_check": errs}
+
+
+def _sweep_check(torch, generator, wavs) -> dict:
+    """The trained generator folded (K2) as the validation sweep runs it:
+    one B = 16 forward on the hop-256 mels of 16 validation crops of the
+    config's segment (its 173 frames), kernel path against plain path
+    (f32 waveform within MAIN_ATOL), with its K2 launches; and the stage
+    lengths of that forward, for `phase_ida_kernel_check`."""
+    from speech_inpainting_torch.device import full_f32
+    from speech_inpainting_torch.models.hifigan import Generator
+    from speech_inpainting_torch.ops.mel import (VOCODER_MEL_22K,
+                                                 mel_spectrogram)
+    from speech_inpainting_torch.ops.resblock import fused_resblock_step
+    gen = generator.fold(cls=Generator)
+    audio = torch.as_tensor(wavs[:, :GAN_SEG], device="cuda")
+    with torch.no_grad(), full_f32():
+        mel = mel_spectrogram(audio, VOCODER_MEL_22K)
+        fused_resblock_step.launches = 0
+        out = gen(mel)
+        torch.cuda.synchronize()
+        launches = fused_resblock_step.launches
+        gen.use_kernel = False
+        plain = gen(mel)
+    gap = float((out - plain).abs().max())
+    cfg = generator.cfg
+    stage_T, t = {}, mel.shape[-1]
+    for i, u in enumerate(cfg.upsample_rates):
+        t *= u
+        stage_T[cfg.upsample_initial_channel // 2 ** (i + 1)] = t
+    return {"B": mel.shape[0], "frames": mel.shape[-1],
+            "k2_launches": launches, "kernel_vs_plain_max_abs": gap,
+            "tolerance": MAIN_ATOL,
+            "path": {"T": stage_T, "kernel_sizes": cfg.resblock_kernel_sizes,
+                     "dilations": cfg.resblock_dilation_sizes},
+            "ok": launches == 72 and gap <= MAIN_ATOL
+            and tuple(out.shape) == (GAN_B, 1, GAN_SEG)}
+
+
 def control_unpinned(torch) -> int:
     """The control of `default_flags` (`--unpinned`): the entry points'
     pinning (`device.full_f32`) is made a no-op before they are imported,
@@ -2532,13 +3101,20 @@ def main() -> int:
     phase_ea_train_parity(torch)
     phase_ea_train(torch)
     tcli = phase_train_ea_cli(torch)
+    phase_gan_step_parity(torch)
+    phase_gan_train(torch)
+    gcli = phase_train_hifigan_cli(torch)
     taken = {"I_ea": _plan_tiles(4, path["T"], path["kernel_sizes"],
                                  path["dilations"]),
              "I_da": _plan_tiles(1, ida["T"], ida["kernel_sizes"],
                                  ida["dilations"]),
              "vocode": _plan_tiles(1, voc["path"]["T"],
                                    voc["path"]["kernel_sizes"],
-                                   voc["path"]["dilations"])}
+                                   voc["path"]["dilations"]),
+             "train_hifigan_validation": _plan_tiles(
+                 GAN_B, gcli["validation_sweep"]["path"]["T"],
+                 gcli["validation_sweep"]["path"]["kernel_sizes"],
+                 gcli["validation_sweep"]["path"]["dilations"])}
     emit({"phase": "spills", "instantiations": [
         {**r, "taken_by": [name for name, tiles in taken.items()
                            if (r["co_tile"], r["t_tile"], r["K"]) in tiles]}
@@ -2552,8 +3128,9 @@ def main() -> int:
         # K1's launches on each path's run (counts set to 0 just before):
         # one V1 forward (base, large), one iSTFT-engine forward, the eight
         # B = 64 serving batches at depth 4, the long-form recording's one
-        # batch of 8 windows, the CLI's three vocoder calls, and the same
-        # three from the trainer's last_ checkpoint (training launches none)
+        # batch of 8 windows, the CLI's three vocoder calls, the same three
+        # from the I_ea trainer's last_ checkpoint and from the GAN trainer's
+        # g_ (training launches none)
         "launches_by_path": {
             "I_ea_hubert_base_v1": path["launches"],
             "I_ea_hubert_large_v1": large_launches,
@@ -2561,7 +3138,8 @@ def main() -> int:
             "serving_b64_depth4_8_batches": serving["launches"],
             "longform_60s": longform["launches"],
             "cli_predict_ea": cli["launches"],
-            "train_ea_cli_predict_ea_from_last": tcli["launches"]},
+            "train_ea_cli_predict_ea_from_last": tcli["launches"],
+            "predict_ea_from_trained_g": gcli["predict_ea_k1_launches"]},
         # the worst over the three checks: V1's 12 (C, K) shapes at B=2,
         # T=2049, the main path's 12 shapes at B=4, and the edge shapes
         "max_abs_err": max(errs["f32_max_abs_err"], timed["float32"]["err"],
@@ -2589,20 +3167,29 @@ def main() -> int:
         # K2's launches on each path's run (counts set to 0 just before):
         # one I_da utterance (two vocoder calls), the inpaint_da CLI per
         # utterance per mask, one V1 forward of the vocode CLI (wav2wav,
-        # --quantize-mel and mel2wav alike), one content-VQ forward
+        # --quantize-mel and mel2wav alike), one content-VQ forward, the GAN
+        # trainer's validation sweep (one B = 16 forward of the folded
+        # generator) and one vocode forward from the g_ it wrote
         "launches_by_path": {
             "I_da_utterance": ida["launches"],
             "inpaint_da_cli_per_utterance_per_mask":
                 ida_cli["launches_per_utterance_per_mask"],
             "vocode_v1_forward": voc["launches_per_forward"],
-            "content_vq_forward": cvq["launches"]},
+            "content_vq_forward": cvq["launches"],
+            "train_hifigan_validation_sweep":
+                gcli["runs"][0]["validation_k2_launches"],
+            "vocode_from_trained_g_per_forward":
+                gcli["vocode_k2_launches_per_forward"]},
         # the worst over the I_da generator's 45 step shapes, V1's 36 at
-        # the vocode CLI's lengths, and the edge shapes
+        # the vocode CLI's lengths and 36 at the GAN trainer's validation
+        # sweep (B = 16), and the edge shapes
         "max_abs_err": max(ida_errs["f32_max_abs_err"],
                            voc["kernel_check"]["f32_max_abs_err"],
+                           gcli["kernel_check"]["f32_max_abs_err"],
                            edge["K2"]["f32_max_abs_err"]),
         "bf16_rel_err": max(ida_errs["bf16_rel_err"],
                             voc["kernel_check"]["bf16_rel_err"],
+                            gcli["kernel_check"]["bf16_rel_err"],
                             edge["K2"]["bf16_rel_err"]),
         "ms": t2["ms"], "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
         "bound_by": t2["bound_by"], "library_ms": t2["library_ms"],

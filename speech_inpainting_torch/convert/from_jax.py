@@ -11,11 +11,18 @@ Plain torch-layout convs ({w, b}) and embedding tables ({weight}) copy across
 as they are. Entry points build on the CUDA card unless `device="cpu"` is
 passed.
 
-The HuBERT trainer takes another form (`trainable_hubert`): float32
-parameters that require grad, the positional conv's (g, v) kept apart;
-`hubert_tree` reads such a model (or its gradients, or an optimizer's
-moments) back into the JAX package's tree, and `inference_hubert` folds it
-into the inference form the loaders above build.
+The trainers take another form: float32 parameters that require grad,
+weight norm's (g, v) kept apart. `trainable_hubert` builds the HuBERT
+trainer's model; `hubert_tree` reads such a model (or its gradients, or an
+optimizer's moments) back into the JAX package's tree, and
+`inference_hubert` folds it into the inference form the loaders above
+build. For the GAN trainer, `trainable_generator`, `mpd_from_jax` and
+`msd_from_jax` build the weight-normed generator and the discriminators
+(the MSD's `spectral` collection in its u/v buffers) from flax trees, and
+`generator_tree`, `mpd_tree`, `msd_tree` and `spectral_tree` read them
+back. Those modules carry the reference checkpoints' names, so each tree
+maps to and from a reference state dict (`reference_*_tree`,
+`_state_dict_of`), which convert/hifigan_torch.py's loaders read too.
 """
 from __future__ import annotations
 
@@ -26,7 +33,9 @@ from torch import nn
 from ..device import resolve_device
 from ..models.codegen import (CodeGenerator, CodeGeneratorConfig, FoVQVAE,
                               FoVQVAEConfig)
-from ..models.hifigan import Generator, HiFiGANConfig
+from ..models.hifigan import (Generator, HiFiGANConfig,
+                              MultiPeriodDiscriminator,
+                              MultiScaleDiscriminator, WNGenerator)
 from ..models.hifigan_fast import FastGenerator
 from ..models.hifigan_istft import ISTFTGenerator, ISTFTGeneratorConfig
 from ..models.hubert import (EncoderWithHead, HubertConfig, HubertModel,
@@ -312,3 +321,223 @@ def codegen_from_jax(cfg: CodeGeneratorConfig, params: dict, vq_tree: dict,
     model.to(device)
     model.generator.to(cfg.hifigan.dtype)
     return model
+
+
+# ------------------------------------- the GAN trainer's modules and trees
+
+def _np_copy(t) -> np.ndarray:
+    """float32 numpy copy (never a view of a tensor a later update moves)."""
+    if hasattr(t, "detach"):
+        t = t.detach().float().cpu()
+    return np.array(t, dtype=np.float32, copy=True)
+
+
+def _wn_params(sd: dict, prefix: str) -> dict:
+    """{v, g, b} of the weight-normed conv at `prefix` of a reference state
+    dict, under either key style (legacy `weight_g`/`weight_v`, or
+    `parametrizations.weight.original0/1`); g flattened to one magnitude
+    per row of axis 0 (C_out, or C_in on a transposed conv)."""
+    for g, v in (("weight_g", "weight_v"),
+                 ("parametrizations.weight.original0",
+                  "parametrizations.weight.original1")):
+        if f"{prefix}.{g}" in sd:
+            return {"v": _np_copy(sd[f"{prefix}.{v}"]),
+                    "g": _np_copy(sd[f"{prefix}.{g}"]).reshape(-1),
+                    "b": _np_copy(sd[f"{prefix}.bias"])}
+    raise KeyError(f"no weight-norm params under '{prefix}'")
+
+
+def _sn_params(sd: dict, prefix: str) -> tuple:
+    """({w, b}, {u, v}) of the spectral-normed conv at `prefix` (legacy
+    `weight_orig`/`weight_u`/`weight_v`, or the parametrizations API's
+    `original`/`_u`/`_v`); the u/v dict is empty where `sd` has none (a
+    tree of gradients)."""
+    for w, u, v in (("weight_orig", "weight_u", "weight_v"),
+                    ("parametrizations.weight.original",
+                     "parametrizations.weight._u",
+                     "parametrizations.weight._v")):
+        if f"{prefix}.{w}" in sd:
+            uv = ({"u": _np_copy(sd[f"{prefix}.{u}"]),
+                   "v": _np_copy(sd[f"{prefix}.{v}"])}
+                  if f"{prefix}.{u}" in sd else {})
+            return ({"w": _np_copy(sd[f"{prefix}.{w}"]),
+                     "b": _np_copy(sd[f"{prefix}.bias"])}, uv)
+    raise KeyError(f"no spectral-norm params under '{prefix}'")
+
+
+def _generator_convs(cfg: HiFiGANConfig):
+    """(flax path, reference prefix) of every conv of the generator."""
+    nk = len(cfg.resblock_kernel_sizes)
+    convs = ("convs1", "convs2") if cfg.resblock == "1" else ("convs",)
+    out = [(("conv_pre",), "conv_pre"), (("conv_post",), "conv_post")]
+    for i in range(len(cfg.upsample_rates)):
+        out.append(((f"ups_{i}",), f"ups.{i}"))
+        for j, rd in enumerate(cfg.resblock_dilation_sizes):
+            out += [((f"resblocks_{i}_{j}", f"{c}_{s}"),
+                     f"resblocks.{i * nk + j}.{c}.{s}")
+                    for c in convs for s in range(len(rd))]
+    return out
+
+
+def _disc_convs(n: int, n_convs: int):
+    """(flax path, reference prefix, discriminator index) of every conv of
+    an MPD (n periods, 5 convs each) or an MSD (n scales, 7)."""
+    return [((f"discriminators_{i}", name), f"discriminators.{i}.{ref}", i)
+            for i in range(n)
+            for name, ref in [(f"convs_{j}", f"convs.{j}")
+                              for j in range(n_convs)]
+            + [("conv_post", "conv_post")]]
+
+
+def _put(tree: dict, path: tuple, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _get(tree: dict, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def reference_generator_tree(sd: dict, cfg: HiFiGANConfig) -> dict:
+    """Generator state dict (reference layout) → the JAX `Generator` tree."""
+    tree = {}
+    for path, prefix in _generator_convs(cfg):
+        _put(tree, path, _wn_params(sd, prefix))
+    return tree
+
+
+def _n_discs(sd: dict) -> int:
+    return len({k.split(".")[1] for k in sd if k.startswith("discriminators.")})
+
+
+def reference_mpd_tree(sd: dict) -> dict:
+    """MultiPeriodDiscriminator state dict → the flax params tree."""
+    tree = {}
+    for path, prefix, _ in _disc_convs(_n_discs(sd), 5):
+        _put(tree, path, _wn_params(sd, prefix))
+    return tree
+
+
+def reference_msd_tree(sd: dict) -> tuple:
+    """MultiScaleDiscriminator state dict → (params, spectral) trees, the
+    spectral-normed scale 0's u/v under `spectral` (empty where `sd` holds
+    no u/v)."""
+    tree, spectral = {}, {}
+    for path, prefix, i in _disc_convs(_n_discs(sd), 7):
+        if i == 0:
+            p, uv = _sn_params(sd, prefix)
+            if uv:
+                _put(spectral, path, uv)
+        else:
+            p = _wn_params(sd, prefix)
+        _put(tree, path, p)
+    return tree, spectral
+
+
+def _wn_entries(prefix: str, p: dict) -> dict:
+    v = _t(p["v"])
+    return {f"{prefix}.weight_g": _t(p["g"]).reshape(
+                (-1,) + (1,) * (v.ndim - 1)),
+            f"{prefix}.weight_v": v, f"{prefix}.bias": _t(p["b"])}
+
+
+def _state_dict_of(module: nn.Module, params: dict,
+                   spectral: dict | None = None) -> dict:
+    """A flax tree (and a `spectral` collection) → `module`'s state dict:
+    the module's own names say where each leaf goes."""
+    if isinstance(module, WNGenerator):
+        convs = [(p, r, None) for p, r in _generator_convs(module.cfg)]
+    else:
+        n_convs = 5 if isinstance(module, MultiPeriodDiscriminator) else 7
+        convs = _disc_convs(len(module.discriminators), n_convs)
+    sd = {}
+    for path, prefix, i in convs:
+        p = _get(params, path)
+        if "w" in p:                                # spectral norm
+            uv = _get(spectral, path)
+            sd.update({f"{prefix}.weight_orig": _t(p["w"]),
+                       f"{prefix}.bias": _t(p["b"]),
+                       f"{prefix}.weight_u": _t(uv["u"]),
+                       f"{prefix}.weight_v": _t(uv["v"])})
+        else:
+            sd.update(_wn_entries(prefix, p))
+    return sd
+
+
+def _loaded(module: nn.Module, params: dict, spectral=None, device=None
+            ) -> nn.Module:
+    module.load_state_dict(_state_dict_of(module, params, spectral))
+    return module.to(device)
+
+
+def trainable_generator(cfg: HiFiGANConfig, params: dict | None = None,
+                        device=None,
+                        generator: torch.Generator | None = None
+                        ) -> WNGenerator:
+    """The GAN trainer's `WNGenerator` on `device`: float32 parameters
+    requiring grad, (g, v) apart, compute in cfg.dtype. Its values come
+    from `params` (a JAX `Generator` tree) or, where None, from the JAX
+    package's inits drawn with `generator`."""
+    device = resolve_device(device)
+    module = WNGenerator(cfg, generator=generator)
+    if params is None:
+        return module.to(device)
+    return _loaded(module, params, device=device)
+
+
+def mpd_from_jax(params: dict | None = None, periods=(2, 3, 5, 7, 11),
+                 dtype: torch.dtype = torch.float32, device=None,
+                 generator: torch.Generator | None = None
+                 ) -> MultiPeriodDiscriminator:
+    """`MultiPeriodDiscriminator` tree (discriminators_{i}/convs_{j},
+    conv_post, each {v, g, b}) → the module on `device`, computing in
+    `dtype`; a fresh init from `generator` where `params` is None."""
+    device = resolve_device(device)
+    module = MultiPeriodDiscriminator(periods, dtype=dtype,
+                                      generator=generator)
+    if params is None:
+        return module.to(device)
+    return _loaded(module, params, device=device)
+
+
+def msd_from_jax(params: dict | None = None, spectral: dict | None = None,
+                 scales: int = 3, dtype: torch.dtype = torch.float32,
+                 device=None, generator: torch.Generator | None = None
+                 ) -> MultiScaleDiscriminator:
+    """`MultiScaleDiscriminator` params (scale 0's convs {w, b}, the others
+    {v, g, b}) and its `spectral` collection (scale 0's {u, v}) → the
+    module on `device`, computing in `dtype`."""
+    device = resolve_device(device)
+    module = MultiScaleDiscriminator(scales, dtype=dtype, generator=generator)
+    if params is None:
+        return module.to(device)
+    return _loaded(module, params, spectral, device=device)
+
+
+def _named(module: nn.Module, of) -> dict:
+    return {n: of(p) for n, p in module.named_parameters()}
+
+
+def generator_tree(module: WNGenerator, of=lambda p: p) -> dict:
+    """`module`'s JAX `Generator` tree, numpy float32 (g flattened): of its
+    parameters, or of `of(p)` for each parameter p (its `.grad`, an
+    optimizer's moment of it)."""
+    return reference_generator_tree(_named(module, of), module.cfg)
+
+
+def mpd_tree(module: MultiPeriodDiscriminator, of=lambda p: p) -> dict:
+    """`module`'s flax params tree, as `generator_tree`."""
+    return reference_mpd_tree(_named(module, of))
+
+
+def msd_tree(module: MultiScaleDiscriminator, of=lambda p: p) -> dict:
+    """`module`'s flax params tree (without the spectral state)."""
+    return reference_msd_tree(_named(module, of))[0]
+
+
+def spectral_tree(module: MultiScaleDiscriminator) -> dict:
+    """The `spectral` collection: scale 0's stored u and v."""
+    return reference_msd_tree(module.state_dict())[1]

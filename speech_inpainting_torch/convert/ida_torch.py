@@ -30,8 +30,8 @@ from ..device import resolve_device
 from ..models.codegen import (CodeGenerator, CodeGeneratorConfig, FoVQVAE,
                               FoVQVAEConfig)
 from ..models.jukebox import ConvStackConfig
-from .from_jax import codegen_from_jax, fo_vqvae_from_jax
-from .hifigan_torch import _generator_tree
+from .from_jax import (codegen_from_jax, fo_vqvae_from_jax,
+                       reference_generator_tree)
 
 
 def _np(t) -> np.ndarray:
@@ -112,7 +112,7 @@ def convert_code_generator(sd: dict, cfg: CodeGeneratorConfig,
     on `device` (its generator in cfg.hifigan.dtype, the ResBlock1s in
     K2)."""
     device = resolve_device(device)
-    params = {"generator": _generator_tree(sd, cfg.hifigan)}
+    params = {"generator": reference_generator_tree(sd, cfg.hifigan)}
     vq_tree = {}
     if cfg.content_vq:
         params["code_encoder"] = convert_encoder(sd, "code_encoder.",

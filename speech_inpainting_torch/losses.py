@@ -1,16 +1,65 @@
-"""I_ea centroid losses against a k-means codebook of mel frames.
+"""The GAN losses, and the I_ea centroid losses against a k-means codebook
+of mel frames.
 
-Counterpart of speech_inpainting_tpu/losses.py's `CentroidLosses`: the
-centred cosine loss −Σ(cos − 1), the sum-MSE against the uncentred
-centroids, the summed cross-entropy, each with its predicted labels, and
-the cosine between predicted and target centroids (the cos-sim accuracy
-metric). Argmax and argmin take the first extreme, as jnp's do. The GAN
-losses and `commit_loss` are not ported yet.
+Counterpart of speech_inpainting_tpu/losses.py:
+  - the HiFi-GAN losses: LSGAN `discriminator_loss` and `generator_loss`,
+    `feature_loss` (L1 over every feature map, ×2) and `mel_l1_loss`
+    (×45), each reducing in float32 whatever type the discriminators
+    computed in (GANConfig.disc_bf16);
+  - `CentroidLosses`: the centred cosine loss −Σ(cos − 1), the sum-MSE
+    against the uncentred centroids, the summed cross-entropy, each with
+    its predicted labels, and the cosine between predicted and target
+    centroids (the cos-sim accuracy metric). Argmax and argmin take the
+    first extreme, as jnp's do.
+`commit_loss` (the VQ-VAE commitment) waits for I_da training.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32)
+
+
+def feature_loss(fmap_r, fmap_g) -> torch.Tensor:
+    """2 · Σ over discriminators and layers of mean |real − fake|."""
+    loss = 0.0
+    for dr, dg in zip(fmap_r, fmap_g):
+        for rl, gl in zip(dr, dg):
+            loss = loss + torch.mean(torch.abs(_f32(rl) - _f32(gl)))
+    return loss * 2.0
+
+
+def discriminator_loss(disc_real_outputs, disc_generated_outputs):
+    """Σ mean((1 − D(y))²) + mean(D(ŷ)²), and the per-discriminator
+    terms."""
+    loss = 0.0
+    r_losses, g_losses = [], []
+    for dr, dg in zip(disc_real_outputs, disc_generated_outputs):
+        r_loss = torch.mean(torch.square(1.0 - _f32(dr)))
+        g_loss = torch.mean(torch.square(_f32(dg)))
+        loss = loss + (r_loss + g_loss)
+        r_losses.append(r_loss)
+        g_losses.append(g_loss)
+    return loss, r_losses, g_losses
+
+
+def generator_loss(disc_outputs):
+    """Σ mean((1 − D(ŷ))²), and the per-discriminator terms."""
+    loss = 0.0
+    gen_losses = []
+    for dg in disc_outputs:
+        g = torch.mean(torch.square(1.0 - _f32(dg)))
+        gen_losses.append(g)
+        loss = loss + g
+    return loss, gen_losses
+
+
+def mel_l1_loss(mel_real, mel_gen, weight: float = 45.0) -> torch.Tensor:
+    """The reference's mel-spectrogram L1, scaled ×45 in the trainers."""
+    return weight * torch.mean(torch.abs(mel_real - mel_gen))
 
 
 class CentroidLosses:

@@ -5,6 +5,9 @@ semantics (torch weight layouts, symmetric integer padding) over `lax`; here
 they are torch's own operators, so the port keeps the names and the layouts:
   conv1d            x (B, C_in, T), w (C_out, C_in/groups, K)
   conv_transpose1d  x (B, C_in, T), w (C_in, C_out/groups, K)
+  conv2d            x (B, C_in, H, W), w (C_out, C_in/groups, KH, KW)
+`avg_pool1d` is torch's AvgPool1d with count_include_pad, as the JAX
+package's `lax.reduce_window` sum over k is.
 """
 from __future__ import annotations
 
@@ -13,6 +16,14 @@ import torch.nn.functional as F
 
 conv1d = F.conv1d
 conv_transpose1d = F.conv_transpose1d
+conv2d = F.conv2d
+
+
+def avg_pool1d(x: torch.Tensor, kernel: int, stride: int,
+               padding: int) -> torch.Tensor:
+    """x (B, C, T) → (B, C, ⌊(T + 2p − k)/s⌋ + 1), the zero padding counted
+    in each window's mean."""
+    return F.avg_pool1d(x, kernel, stride, padding, count_include_pad=True)
 
 
 def weight_norm_kernel(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -3,9 +3,14 @@ not a dependency) over the GEMM STFT, then log(clamp(·, 1e-5)).
 
 Presets:
   - VOCODER_MEL_22K: 22.05 kHz, n_fft 1024, hop 256, win 1024, pad 384;
+  - VOCODER_MEL_22K_FULLBAND: the same up to Nyquist (fmax None), the
+    HiFi-GAN trainers' loss mel (fmax_for_loss);
   - HUBERT_ALIGNED_MEL_22K: the same at hop 441 (20 ms), pad 312, the frame
     grid of HuBERT's 20 ms frames;
+  - MODIFIED_MEL_22K: hop 441 at the hifi_gan mel's own pad (n_fft −
+    hop)//2 = 291, not 312: the modified trainer's hop-441 mel;
   - VOCODER_MEL_16K: VOCODER_MEL_22K's geometry at 16 kHz (I_da).
+The mel carries a gradient to its waveform (the trainers' mel-L1 loss).
 """
 from __future__ import annotations
 
@@ -66,6 +71,7 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float,
 
 
 @functools.lru_cache(maxsize=16)
+@torch.inference_mode(False)   # a normal tensor: training's mel saves it
 def _mel_basis(sr: int, n_fft: int, n_mels: int, fmin: float,
                fmax: float | None, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(
@@ -98,7 +104,9 @@ class MelConfig:
 
 
 VOCODER_MEL_22K = MelConfig()
+VOCODER_MEL_22K_FULLBAND = MelConfig(fmax=None)
 HUBERT_ALIGNED_MEL_22K = MelConfig(hop_size=441, pad=312)
+MODIFIED_MEL_22K = MelConfig(hop_size=441)
 VOCODER_MEL_16K = MelConfig(sampling_rate=16000)
 
 

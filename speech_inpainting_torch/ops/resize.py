@@ -38,3 +38,9 @@ def extend_mel(mel: torch.Tensor, *, src_hop: int = 441,
     scale = src_hop / dst_hop
     out_len = math.floor(mel.shape[-1] * scale)
     return interp_linear(mel, out_len, scale=scale)
+
+
+def regrid_mel_to(mel: torch.Tensor, out_frames: int) -> torch.Tensor:
+    """Regrid (..., n_mels, frames) to an explicit frame count, at the
+    scale out_frames/frames (meldataset_modified's size= path)."""
+    return interp_linear(mel, out_frames)

@@ -32,8 +32,12 @@ def _dft_kernel_np(n_fft: int, win_size: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
+@torch.inference_mode(False)
 def _dft_basis(n_fft: int, win_size: int, device: torch.device) -> torch.Tensor:
-    """(n_fft, 2·n_freq) float32 basis on `device`, made once per device."""
+    """(n_fft, 2·n_freq) float32 basis on `device`, made once per device,
+    outside inference mode even when first asked for inside it: the
+    trainers' in-graph mel saves it for backward, which an inference
+    tensor refuses."""
     basis = torch.from_numpy(_dft_kernel_np(n_fft, win_size)[:, 0, :])
     return basis.t().contiguous().to(device)
 
@@ -97,6 +101,7 @@ def _idft_kernel_np(n_fft: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
+@torch.inference_mode(False)
 def _istft_consts(n_fft: int, hop: int, frames: int, device: torch.device,
                   dtype: torch.dtype):
     """The inverse-DFT basis and the Hann window in `dtype`, and the trimmed

@@ -450,3 +450,96 @@ def synthetic_utterance(rng, seconds: float, sr: int = 16000) -> np.ndarray:
         x[t0:t0 + t.size] += 0.5 * seg / np.abs(seg).max() * ramp
         t0 += t.size + int(sr * rng.uniform(0.1, 0.25))
     return x.astype(np.float32)
+
+
+# How many of a tensor's elements a float32 GAN step may leave outside both
+# of parity_gate's gates, max(NOISE_LEAST, NOISE_SHARE × its size), and how
+# far (× its float64 tolerance) each may lie from float64: a leaky ReLU or
+# |·| input within rounding of its kink takes its slope by the rounding's
+# sign and moves every gradient behind it, the whole of a narrow layer's
+# bias. Set between the readings of that noise and those of planted faults
+# (tests/test_torch_gan_gate.py; PERF.md §6).
+NOISE_SHARE, NOISE_LEAST, NOISE_EXCESS = 0.5, 16, 1000.0
+# One AdamW update (b1 0.8, b2 0.99) moves an element by at most 1.005·lr
+# over its first two steps, so two runs that part in a gradient's sign part
+# by at most ADAMW_NOISE·lr
+ADAMW_NOISE = 2.01
+
+
+def _f64(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().double().cpu()
+    return np.asarray(a, dtype=np.float64)
+
+
+def noise_tolerance(want, ref) -> float:
+    """What float32 leaves of a tensor's agreement with float64: 1e-4 of
+    its largest magnitude in `ref`, or 4 × `want`'s own largest gap to
+    `ref` (`want` a float32 run, `ref` the same computation in float64),
+    whichever is larger."""
+    want, ref = _f64(want), _f64(ref)
+    return max(1e-4 * np.abs(ref).max(), 4 * np.abs(want - ref).max())
+
+
+def parity_gate(got: dict, want: dict, ref: dict,
+                exempt: dict | None = None,
+                bound: float | None = None) -> dict:
+    """Elementwise parity of the tensors `got` against `want` (the same
+    names; arrays or tensors), with `ref` the computation of `want` in
+    float64. An element passes within rtol 2e-5, atol 2e-6 of `want`, or
+    within its tensor's `noise_tolerance(want, ref)` of `ref`; one that
+    passes neither is outside. Each tensor may hold max(NOISE_LEAST,
+    floor(NOISE_SHARE × its size)) outside elements, each within
+    NOISE_EXCESS × that tolerance of `ref`. Outside elements that
+    `exempt[name]` (a boolean mask) marks are held instead to `bound`,
+    their largest gap to `want`.
+
+    Returns {"f64": the tensors that needed the float64 gate, "outside":
+    {name: elements outside, the exempt ones apart}, "exempt": {name:
+    exempt elements outside}, "share_max": the largest share of a tensor
+    outside, "excess_max": the largest gap to `ref` of a (not exempt)
+    outside element over its tensor's tolerance, "failed": the tensors
+    past the share, the excess or the bound, "ok"}."""
+    assert got.keys() == want.keys() == ref.keys()
+    out = {"f64": [], "outside": {}, "exempt": {}, "share_max": 0.0,
+           "excess_max": 0.0, "failed": []}
+    for name in want:
+        g, w, r = _f64(got[name]), _f64(want[name]), _f64(ref[name])
+        gap = np.abs(g - w)
+        strict = gap > 2e-6 + 2e-5 * np.abs(w)
+        if not strict.any():
+            continue
+        out["f64"].append(name)
+        tol = noise_tolerance(w, r)
+        far = np.abs(g - r)
+        outside = strict & (far > tol)
+        free = outside
+        if exempt is not None and name in exempt:
+            held = outside & np.asarray(exempt[name]).reshape(w.shape)
+            free = outside & ~held
+            if held.any():
+                out["exempt"][name] = int(held.sum())
+                if bound is not None and gap[held].max() > bound:
+                    out["failed"].append(name)
+                    continue
+        n = int(free.sum())
+        if not n:
+            continue
+        out["outside"][name] = n
+        out["share_max"] = max(out["share_max"], n / w.size)
+        worst = float(far[free].max() / tol) if tol else math.inf
+        out["excess_max"] = max(out["excess_max"], worst)
+        if n > max(NOISE_LEAST, math.floor(NOISE_SHARE * w.size)) or (
+                worst > NOISE_EXCESS):
+            out["failed"].append(name)
+    out["ok"] = not out["failed"]
+    return out
+
+
+def zero_up_to_rounding(want: dict, ref: dict) -> dict:
+    """{name: mask of the elements whose float64 value `ref` lies within
+    the tensor's `noise_tolerance` of zero}: for AdamW's first moments,
+    the parameters whose gradient is zero up to rounding, which float32
+    may move by ±lr either way."""
+    return {k: np.abs(_f64(ref[k])) <= noise_tolerance(want[k], ref[k])
+            for k in want}

@@ -40,6 +40,7 @@ from ..losses import CentroidLosses
 from ..models.hubert import EncoderWithHead
 from ..ops.masking import mask_wave_frames
 from .guard import SkipNonFinite
+from .optim import AdamW
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,59 +84,6 @@ class EATrainState:
         self.optimizer.load_state_dict(sd["optimizer"])
         if self.guard is not None:
             self.guard.load_state_dict(sd["guard"])
-
-
-class AdamW(torch.optim.Optimizer):
-    """optax.adamw's update, in optax's order of operations, so that a
-    parameter rounds as the JAX package's does (torch.optim.AdamW computes
-    the same terms but combines them in another order, which moves a
-    parameter near 1 by an ulp or two):
-        mu ← (1 − b1)·g + b1·mu,  nu ← (1 − b2)·g² + b2·nu,
-        u  ← (mu / (1 − b1^t)) / (√(nu / (1 − b2^t)) + eps) + wd·p,
-        p  ← p + (−lr)·u.
-    One count t per group, advanced only by `step`; multi-tensor (foreach)
-    operations over each group."""
-
-    def __init__(self, params, lr: float, betas=(0.9, 0.999),
-                 eps: float = 1e-8, weight_decay: float = 0.0):
-        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
-                                      weight_decay=weight_decay))
-
-    @torch.no_grad()
-    def step(self, closure=None):
-        for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
-            if not params:
-                continue
-            for p in params:
-                if not self.state[p]:
-                    self.state[p].update(step=0,
-                                         exp_avg=torch.zeros_like(p),
-                                         exp_avg_sq=torch.zeros_like(p))
-            states = [self.state[p] for p in params]
-            grads = [p.grad for p in params]
-            mu = [s["exp_avg"] for s in states]
-            nu = [s["exp_avg_sq"] for s in states]
-            b1, b2 = group["betas"]
-            t = states[0]["step"] + 1
-            for s in states:
-                s["step"] = t
-            torch._foreach_mul_(mu, b1)
-            torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
-            sq = torch._foreach_mul(grads, grads)
-            torch._foreach_mul_(sq, 1 - b2)
-            torch._foreach_mul_(nu, b2)
-            torch._foreach_add_(nu, sq)
-            u = torch._foreach_div(mu, 1 - b1 ** t)
-            den = torch._foreach_div(nu, 1 - b2 ** t)
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, group["eps"])
-            torch._foreach_div_(u, den)
-            del den
-            torch._foreach_add_(u, torch._foreach_mul(
-                params, group["weight_decay"]))
-            torch._foreach_mul_(u, -group["lr"])
-            torch._foreach_add_(params, u)
 
 
 def _group(name: str) -> str:

@@ -11,8 +11,14 @@ files in place of orbax directories (orbax is a JAX library):
   - saves are asynchronous, as orbax's are: the tree is copied to the host
     at once, and a thread writes it while training goes on; `wait()` joins
     the write and raises its error, `save(wait=True)` waits at once.
-The GAN pair (`save_gan_checkpoint`, `restore_gan_checkpoint`) waits for
-GAN training.
+The GAN trainer's pair (`save_gan_checkpoint`, `restore_gan_checkpoint`):
+`g_{step:08d}` is `{"generator": state_dict}` under the reference's keys
+(legacy weight norm), which `convert.hifigan_torch.load_generator_checkpoint`
+reads as it reads a reference file (`vocode`, `predict_ea`); `do_{step:08d}`
+holds the discriminators (the MSD's u/v among its buffers), both optimizers,
+`steps` and, with the nonfinite guard, its counters. The restore is partial
+as in the JAX package: the newest `g_` and the newest `do_` are each loaded
+where found.
 """
 from __future__ import annotations
 
@@ -107,3 +113,35 @@ class Checkpointer:
         if self._error is not None:
             err, self._error = self._error, None
             raise err
+
+
+def save_gan_checkpoint(ckpt: Checkpointer, state, step: int, *,
+                        wait: bool = False) -> None:
+    """Write `state` (a train.gan.GANTrainState) as g_/do_ at `step`."""
+    full = state.state_dict()
+    ckpt.save("g_", step, {"generator": full["generator"]})
+    do = {k: full[k] for k in ("mpd", "msd", "optim_g", "optim_d")}
+    do["steps"] = full["step"]
+    if "guards" in full:
+        do["guards"] = full["guards"]
+    ckpt.save("do_", step, do, wait=wait)
+
+
+def restore_gan_checkpoint(ckpt: Checkpointer, state):
+    """Resume `state` from the newest g_ and the newest do_, each where
+    found (a generator-only or discriminator-only warm start). Returns
+    (state, had_g, had_do)."""
+    g = ckpt.restore("g_")
+    if g is not None:
+        state.generator.load_state_dict(g["generator"])
+    do = ckpt.restore("do_")
+    if do is not None:
+        state.mpd.load_state_dict(do["mpd"])
+        state.msd.load_state_dict(do["msd"])
+        state.g_opt.load_state_dict(do["optim_g"])
+        state.d_opt.load_state_dict(do["optim_d"])
+        state.step = int(do["steps"])
+        if state.g_guard is not None and "guards" in do:
+            state.g_guard.load_state_dict(do["guards"]["g"])
+            state.d_guard.load_state_dict(do["guards"]["d"])
+    return state, g is not None, do is not None

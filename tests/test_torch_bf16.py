@@ -1,7 +1,8 @@
 """Where the port's bfloat16 paths compute in which type, held against the
 flax modules' own split: the HuBERT EncoderWithHead (base and large) and
 the HiFi-GAN Generator built with `dtype=jnp.bfloat16` on the JAX side and
-`dtype=torch.bfloat16` on the port's.
+`dtype=torch.bfloat16` on the port's, and the GAN trainer's discriminators
+with disc_bf16 (bf16 convolutions over float32 parameters).
 
 The outputs alone cannot show the split: the port's bf16 output lies about
 as far from flax's bf16 output as from flax's f32 one, since bf16 rounding
@@ -90,7 +91,7 @@ class _PortCensus(TorchFunctionMode):
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if func in (torch.conv1d, torch.conv_transpose1d,
+        if func in (torch.conv1d, torch.conv2d, torch.conv_transpose1d,
                     torch.nn.functional.linear):
             self._add("conv" if func is not torch.nn.functional.linear
                       else "dot", args[0], args[1])
@@ -185,3 +186,45 @@ def test_generator_bf16_computes_in_flax_types(rng):
     assert set(want) == {("conv", ("bfloat16", "bfloat16")),
                          ("lrelu", ("bfloat16",)), ("tanh", ("bfloat16",))}
     assert got == want
+
+
+@pytest.mark.parametrize("which", ["mpd", "msd"])
+def test_disc_bf16_convs_compute_in_flax_types(rng, which):
+    """GANConfig.disc_bf16: every discriminator convolution (1-D and the
+    MPD's 2-D) takes bf16 inputs and a bf16 kernel, and every leaky ReLU a
+    bf16 input, on both sides; the parameters stay float32. The MSD's
+    power iteration (float32 products, which the port computes with
+    matmul, not counted) is left out: only conv and lrelu are compared."""
+    from speech_inpainting_tpu.models import hifigan as jh
+    from speech_inpainting_torch.convert.from_jax import (mpd_from_jax,
+                                                          mpd_tree,
+                                                          msd_from_jax,
+                                                          msd_tree,
+                                                          spectral_tree)
+    y, y_hat = (rng.standard_normal((2, 2, 1, 2048)).astype(np.float32)
+                * 0.3)
+    gen = torch.Generator().manual_seed(0)
+    if which == "mpd":
+        port = mpd_from_jax(None, dtype=torch.bfloat16, device="cpu",
+                            generator=gen)
+        want = _flax_census(
+            lambda p, a, b: jh.MultiPeriodDiscriminator(
+                dtype=jnp.bfloat16).apply({"params": p}, a, b),
+            mpd_tree(port), y, y_hat)
+    else:
+        port = msd_from_jax(None, dtype=torch.bfloat16, device="cpu",
+                            generator=gen)
+        want = _flax_census(
+            lambda p, s, a, b: jh.MultiScaleDiscriminator(
+                dtype=jnp.bfloat16).apply({"params": p, "spectral": s}, a, b,
+                                          True, mutable=["spectral"]),
+            msd_tree(port), spectral_tree(port), y, y_hat)
+    assert all(p.dtype == torch.float32 for p in port.parameters())
+    got = _port_census(port, torch.tensor(y), torch.tensor(y_hat))
+    kept = lambda c: {k: n for k, n in c.items()  # noqa: E731
+                      if k[0] in ("conv", "lrelu")}
+    n_convs = 2 * (5 * 6 if which == "mpd" else 3 * 8)
+    assert kept(want) == {("conv", ("bfloat16", "bfloat16")): n_convs,
+                          ("lrelu", ("bfloat16",)): n_convs - (
+                              10 if which == "mpd" else 6)}
+    assert kept(got) == kept(want)

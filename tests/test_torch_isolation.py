@@ -92,7 +92,14 @@ def test_entry_points_refuse_the_cpu_unasked():
         convert_code_generator, convert_fo_vqvae)
     from speech_inpainting_torch.convert.from_jax import (fo_vqvae_from_jax,
                                                           trainable_hubert)
-    from speech_inpainting_torch.cli import train_ea
+    from speech_inpainting_torch.cli import train_ea, train_hifigan
+    from speech_inpainting_torch.convert.from_jax import (
+        mpd_from_jax, msd_from_jax, trainable_generator)
+    from speech_inpainting_torch.convert.hifigan_torch import (
+        convert_mpd, convert_msd, load_discriminator_checkpoint,
+        load_trainable_generator)
+    from speech_inpainting_torch.train.gan import (GANConfig,
+                                                   default_discriminators)
     from speech_inpainting_torch.data.code_dataset import mel_stats_embedder
     from speech_inpainting_torch.models.codegen import FoVQVAEConfig
     from speech_inpainting_torch.quantize.kmeans import fit_kmeans
@@ -131,7 +138,18 @@ def test_entry_points_refuse_the_cpu_unasked():
                  lambda: trainable_hubert(HubertConfig.base(), None),
                  lambda: train_ea.main(["--wavs", ".", "--split", "s",
                                         "--labels-dir", ".", "--kmeans", "k",
-                                        "--checkpoint-path", "c"])):
+                                        "--checkpoint-path", "c"]),
+                 lambda: trainable_generator(HiFiGANConfig()),
+                 lambda: mpd_from_jax(),
+                 lambda: msd_from_jax(),
+                 lambda: convert_mpd({}),
+                 lambda: convert_msd({}),
+                 lambda: load_discriminator_checkpoint("do_00000001"),
+                 lambda: load_trainable_generator("g_00000001",
+                                                  HiFiGANConfig()),
+                 lambda: default_discriminators(GANConfig()),
+                 lambda: train_hifigan.main(["--wavs", ".",
+                                             "--checkpoint-path", "c"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
