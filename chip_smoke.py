@@ -127,7 +127,7 @@ it stopped); any failure raises and exits non-zero:
                 the full MPD and MSD, B = 2 × 8192, f32, batched_disc on:
                 card vs CPU (losses rel 1e-5; parameters, gradients,
                 moments and u/v rtol 2e-5 atol 2e-6, or near a float64
-                step, at most 1% of a module's elements outside both),
+                step, per tensor within testing.NOISE's share and excess),
                 then on the card the second update at the decayed rate, a
                 nan batch under the guard (bit-equal, one skip, u/v
                 advanced) and batched_disc off against on;
@@ -140,7 +140,25 @@ it stopped); any failure raises and exits non-zero:
                 a 16-wav validation filelist (2 steps and a sweep of 72 K2
                 launches), again resuming 2 → 4, then `predict_ea` (216 K1
                 launches) and `vocode wav2wav` (72 K2 per forward) from the
-                g_ it wrote; that g_ served equal to the module's fold().
+                g_ it wrote; that g_ served equal to the module's fold();
+  f0vq_step_parity  three steps of the pitch quantizer's trainer
+                (train/f0vq.py) at configs/f0_vqvae.json's width, B = 16 ×
+                208 f0 frames, from an uninitialised codebook: card vs CPU
+                (labels equal at every step, losses rel 1e-5, parameters,
+                moments and codebook buffers by testing.parity_gate beside
+                a float64 step), the first step initialising the codebook
+                and restarting codes;
+  f0vq_train    300 steps of it on the f0 of 64 synthetic 3 s utterances
+                (ms per step by CUDA events, f0 frames/s, peak memory, the
+                bound, one step profiled, the EMA update alone): recon
+                falling, used_curr above 1;
+  prep_and_train_f0vq_cli  the I_da preparation as a user runs it:
+                `prep preprocess → manifest → features → kmeans_cli fit →
+                quantize → parse-codes → f0-stats` (HuBERT-base from an HF
+                directory), `train_f0vq` twice (2 steps, resumed 2 → 4), a
+                CodeDataset batch, then one I_da utterance with the trained
+                pitch quantizer (180 K2 launches, kernel vs plain path);
+                units card vs CPU equal outside HuBERT's tolerance margin.
 Then the `spills` and `kernels` lines (K1's and K2's launches on each
 path), and last {"ok": true, "device": {...}}.
 
@@ -2664,15 +2682,18 @@ def _gan_gaps(a, b, r) -> dict:
     (every parameter, gradient, AdamW moment and u/v): an element passes
     within rtol 2e-5, atol 2e-6 of the CPU's, or within its tensor's
     float64 tolerance (1e-4 of its largest magnitude, or 4 × the CPU's
-    own float32 gap) of float64. Each tensor may hold testing.NOISE_SHARE
-    of its elements outside both (NOISE_LEAST at the least), each within
-    NOISE_EXCESS × the tolerance: a leaky ReLU input within rounding of
+    own float32 gap) of float64. Each tensor of more than NOISE_SMALL
+    elements may hold testing.NOISE.share of its elements outside both, and
+    every outside element must lie within NOISE.excess × the tolerance
+    (the limits are printed with the readings): a leaky ReLU input within
+    rounding of
     its kink (several a step at these widths) takes its slope by the
     rounding's sign and moves every gradient behind it. A parameter
     element outside whose gradient is zero up to rounding (its float64
     first moment within the moment's tolerance of zero) is held to AdamW's
     noise bound instead."""
-    from speech_inpainting_torch.testing import (ADAMW_NOISE, parity_gate,
+    from speech_inpainting_torch.testing import (ADAMW_NOISE, NOISE,
+                                                 parity_gate,
                                                  zero_up_to_rounding)
     mu = [k for k in b if k.startswith("mu ")]
     zero = zero_up_to_rounding({k: b[k] for k in mu}, {k: r[k] for k in mu})
@@ -2681,6 +2702,7 @@ def _gan_gaps(a, b, r) -> dict:
     kinds = sorted({k.split(" ")[0] for k in rep["f64"]})
     return {"outside": rep["outside"], "exempt": rep["exempt"],
             "share_max": rep["share_max"], "excess_max": rep["excess_max"],
+            "limits": {"share": NOISE.share, "excess": NOISE.excess},
             "f64_tensor_counts": {k: sum(n.startswith(k + " ")
                                          for n in rep["f64"])
                                   for k in kinds},
@@ -3035,6 +3057,477 @@ def _sweep_check(torch, generator, wavs) -> dict:
             and tuple(out.shape) == (GAN_B, 1, GAN_SEG)}
 
 
+F0VQ_CONFIG = CONFIGS / "f0_vqvae.json"
+F0VQ_SILENT = 4        # all-unvoiced clips in the parity batch (of 16)
+# the parity run's candidate generator: its first draw takes the same
+# frame of two silent clips (flat rows 24 and 37, frame 11 of clips 1 and
+# 2, whose latents are equal), so the first step restarts the repeat
+F0VQ_PARITY_GEN = 4
+F0VQ_STEPS = 300       # f0vq_train's steps
+PREP_UTTS = 20         # the prep CLI's corpus: 20 wavs of 2 s at 22.05 kHz
+
+
+def _f0vq_configs():
+    """configs/f0_vqvae.json as train_f0vq reads it: (the dict, the
+    F0VQConfig)."""
+    from speech_inpainting_torch.models.codegen import FoVQVAEConfig
+    from speech_inpainting_torch.train.f0vq import F0VQConfig
+    h = json.loads(F0VQ_CONFIG.read_text())
+    return h, F0VQConfig(model=FoVQVAEConfig.from_dict(h),
+                         learning_rate=h["learning_rate"],
+                         adam_b1=h["adam_b1"], adam_b2=h["adam_b2"],
+                         lr_decay=h["lr_decay"],
+                         lambda_commit=h["lambda_commit"])
+
+
+def _f0_corpus(torch, n=64, seconds=3.0) -> tuple:
+    """(F0DatasetTPU on the card over `n` synthetic 16 kHz utterances of
+    `seconds`, written to a temporary directory, at f0_vqvae.json's
+    segment; the seconds it took to track them)."""
+    import tempfile
+    from speech_inpainting_torch.data.code_dataset import F0DatasetTPU
+    from speech_inpainting_torch.testing import synthetic_utterance
+    h, _ = _f0vq_configs()
+    rng = np.random.default_rng(SEED + 200)
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for i in range(n):
+            files.append(Path(tmp) / f"s{i % 4}_{i:03d}.wav")
+            _write_wav(files[-1], synthetic_utterance(rng, seconds), 16000)
+        t0 = time.perf_counter()
+        ds = F0DatasetTPU(files, segment_size=h["segment_size"],
+                          device="cuda")
+        return ds, time.perf_counter() - t0
+
+
+def _empty_vq(cfg) -> dict:
+    return {"vq": {f"level_{i}": {
+        "k": np.zeros((cfg.l_bins, cfg.emb_width), np.float32),
+        "k_sum": np.zeros((cfg.l_bins, cfg.emb_width), np.float32),
+        "k_elem": np.zeros(cfg.l_bins, np.float32),
+        "initted": np.zeros((), bool)} for i in range(cfg.levels)}}
+
+
+def _f0vq_tensors(state) -> dict:
+    """Every parameter, both AdamW moments and the codebook buffers of a
+    F0VQTrainState, as "kind name" → float64 CPU tensors."""
+    out = {}
+    for n, p in state.model.named_parameters():
+        st = state.optimizer.state[p]
+        out[f"param {n}"] = p.detach().double().cpu()
+        out[f"mu {n}"] = st["exp_avg"].double().cpu()
+        out[f"nu {n}"] = st["exp_avg_sq"].double().cpu()
+    for n, b in state.model.named_buffers():
+        if b.is_floating_point():
+            out[f"vq {n}"] = b.double().cpu()
+    return out
+
+
+def phase_f0vq_step_parity(torch, ds) -> dict:
+    """Three steps of the pitch quantizer's trainer at full width
+    (configs/f0_vqvae.json: 1 → 32 channels, 4 strided stages, a 20 × 128
+    codebook; B = 16 × 208 f0 frames of `_f0_corpus`, F0VQ_SILENT of them
+    all unvoiced, as silent clips are, so that their latents repeat) from
+    one seeded tree and an uninitialised codebook: on the card, on the CPU
+    in float32 and in float64, each with the same CPU generator's
+    candidates (F0VQ_PARITY_GEN, whose first draw repeats a silent frame).
+    Gates: labels card vs CPU equal at every step; the first step
+    initialises the codebook and restarts codes; losses rel 1e-5; every
+    parameter, AdamW moment and codebook buffer by testing.parity_gate
+    (card against the CPU's float32 step, the float64 step beside it; a
+    parameter whose gradient is zero up to rounding held to AdamW's noise
+    bound)."""
+    from speech_inpainting_torch.convert.from_jax import trainable_fo_vqvae
+    from speech_inpainting_torch.testing import (ADAMW_NOISE, NOISE,
+                                                 fo_vqvae_tree, parity_gate,
+                                                 zero_up_to_rounding)
+    from speech_inpainting_torch.train.f0vq import (create_f0vq_state,
+                                                    make_f0vq_step)
+    h, tcfg = _f0vq_configs()
+    cfg = tcfg.model
+    params, _ = fo_vqvae_tree(cfg, np.random.default_rng(SEED + 201))
+    f0 = next(ds.batches(h["batch_size"], epoch=0, seed=SEED))["f0"]
+    f0[:F0VQ_SILENT] = 0.0
+    t0 = time.perf_counter()
+    runs = {}
+    for name, device, dtype in (("card", "cuda", torch.float32),
+                                ("cpu", "cpu", torch.float32),
+                                ("f64", "cpu", torch.float64)):
+        model = trainable_fo_vqvae(cfg, params, _empty_vq(cfg),
+                                   device=device).to(dtype)
+        labels = []
+        model.vq.level_0.register_forward_hook(
+            lambda m, a, out, into=labels: into.append(out[0].cpu()))
+        state = create_f0vq_state(tcfg, model)
+        step = make_f0vq_step(tcfg, device=device)
+        gen = torch.Generator().manual_seed(F0VQ_PARITY_GEN)
+        batch = {"f0": f0.astype(np.float64 if dtype == torch.float64
+                                 else np.float32)}
+        metrics, usage = [], None
+        for i in range(3):
+            state, m = step(state, batch, gen)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                usage = int(m["usage"])
+        runs[name] = dict(state=state, labels=labels, metrics=metrics,
+                          usage_after_first=usage,
+                          initted=bool(model.vq.level_0.initted))
+    torch.cuda.synchronize()
+    card, cpu, f64 = (_f0vq_tensors(runs[k]["state"])
+                      for k in ("card", "cpu", "f64"))
+    mu = [k for k in cpu if k.startswith("mu ")]
+    zero = zero_up_to_rounding({k: cpu[k] for k in mu},
+                               {k: f64[k] for k in mu})
+    zero = {"param " + k[3:]: m for k, m in zero.items()}
+    rep = parity_gate(card, cpu, f64, exempt=zero,
+                      bound=ADAMW_NOISE * tcfg.learning_rate)
+    labels_equal = [bool(torch.equal(a, b)) for a, b in
+                    zip(runs["card"]["labels"], runs["cpu"]["labels"])]
+    loss_rel = max(_rel(a[k], b[k])
+                   for a, b in zip(runs["card"]["metrics"],
+                                   runs["cpu"]["metrics"])
+                   for k in ("loss", "recon", "commit"))
+    restarted = cfg.l_bins - runs["card"]["usage_after_first"]
+    ok = (len(labels_equal) == 3 and all(labels_equal)
+          and runs["card"]["initted"] and restarted > 0
+          and loss_rel <= 1e-5 and rep["ok"]
+          and runs["card"]["state"].step == 3)
+    row = {"phase": "f0vq_step_parity", "config": "f0_vqvae.json",
+           "batch": list(f0.shape), "silent_clips": F0VQ_SILENT,
+           "labels_equal_each_step": labels_equal,
+           "codes_restarted_on_first_step": restarted,
+           "loss_card": [m["loss"] for m in runs["card"]["metrics"]],
+           "loss_cpu": [m["loss"] for m in runs["cpu"]["metrics"]],
+           "loss_f64": [m["loss"] for m in runs["f64"]["metrics"]],
+           "losses_max_rel": loss_rel, "losses_rtol": 1e-5,
+           "gate_outside": rep["outside"], "gate_exempt": rep["exempt"],
+           "share_max": rep["share_max"], "excess_max": rep["excess_max"],
+           "limits": {"share": NOISE.share, "excess": NOISE.excess},
+           "f64_tensors": len(rep["f64"]), "failed": rep["failed"],
+           "seconds": time.perf_counter() - t0, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("f0-VQ-VAE step parity failed")
+    return row
+
+
+def f0vq_forward_flops(torch, model, f0) -> float:
+    """FLOPs (2 per multiply-add) of one FoVQVAE forward of `f0`: its
+    convolutions, counted by forward hooks, and the VQ's distance GEMM."""
+    total = 0.0
+
+    def conv(m, args, out):
+        nonlocal total
+        if isinstance(m, torch.nn.ConvTranspose1d):
+            total += 2.0 * args[0].numel() * m.out_channels * m.kernel_size[0]
+        else:
+            total += 2.0 * out.numel() * m.in_channels * m.kernel_size[0]
+
+    hooks = [m.register_forward_hook(conv) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d))]
+    with torch.no_grad():
+        model(f0)
+    for hook in hooks:
+        hook.remove()
+    cfg = model.cfg
+    rows = f0.shape[0] * f0.shape[-1] // cfg.encoder.total_stride
+    return total + 2.0 * rows * cfg.l_bins * cfg.emb_width
+
+
+def phase_f0vq_train(torch, ds, corpus_s) -> dict:
+    """The pitch quantizer's trainer at full width (configs/f0_vqvae.json,
+    B = 16 × 208 f0 frames) over `_f0_corpus`'s 64 utterances, from a fresh
+    init drawn from SEED with an uninitialised codebook: F0VQ_STEPS steps,
+    each between two CUDA events (ms per step, median and range after 5,
+    f0 frames per second, peak memory, the bound), one step profiled (the
+    busy share), the host's wall time to enqueue a forward and a forward
+    and backward, the EMA update timed alone. Gates: losses finite, recon
+    falling (the mean of the last 10 steps under the first 10's), used_curr
+    above 1 over the last 10 steps."""
+    from speech_inpainting_torch.convert.from_jax import trainable_fo_vqvae
+    from speech_inpainting_torch.device import full_f32
+    from speech_inpainting_torch.train.f0vq import (create_f0vq_state,
+                                                    make_f0vq_step)
+    h, tcfg = _f0vq_configs()
+    B = h["batch_size"]
+    model = trainable_fo_vqvae(tcfg.model, seed=SEED, device="cuda")
+    state = create_f0vq_state(tcfg, model)
+    step = make_f0vq_step(tcfg, device="cuda")
+    gen = torch.Generator().manual_seed(SEED + 2)
+    batches, epoch = [], 0
+    while len(batches) < F0VQ_STEPS:
+        batches += [{"f0": torch.as_tensor(b["f0"], device="cuda")}
+                    for b in ds.batches(B, epoch=epoch, seed=SEED)]
+        epoch += 1
+    batches = batches[:F0VQ_STEPS]
+    flops = 3 * f0vq_forward_flops(torch, model, batches[0]["f0"])
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in batches]
+    metrics = []
+    t0 = time.perf_counter()
+    for (a, b), batch in zip(events, batches):
+        a.record()
+        state, m = step(state, batch, gen)
+        b.record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ms = [a.elapsed_time(b) for a, b in events][5:]
+    recon = [float(m["recon"]) for m in metrics]
+    loss = [float(m["loss"]) for m in metrics]
+    used = [int(m["used_curr"]) for m in metrics]
+    prof = _profile_step(torch, lambda s, b: step(s, b, gen), state,
+                         batches[0])
+    # the host's share: wall time to enqueue the forward alone, and the
+    # forward and backward (no optimizer), per call, without a sync
+    host_ms = {}
+    for part in ("forward", "forward_backward"):
+        ts = []
+        for b in batches[:30]:
+            t1 = time.perf_counter()
+            with full_f32():
+                out, commits, _ = model(b["f0"], train=True, generator=gen)
+                if part == "forward_backward":
+                    model.zero_grad(set_to_none=True)
+                    (((out - b["f0"]) ** 2).mean()
+                     + tcfg.lambda_commit * sum(commits)).backward()
+            ts.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+        host_ms[part] = float(np.median(ts))
+    q = model.vq.level_0
+    flat = torch.randn(B * h["segment_size"] // 80 // 16, q.emb_width,
+                       device="cuda")
+    labels, _ = q.quantise(flat)
+    ema_ms = cuda_ms(lambda: q._update_k(flat, labels, flat[:q.k_bins]), 50)
+    med = float(np.median(ms))
+    frames = B * h["segment_size"] // 80
+    bound_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    # parameters, gradients and both moments read and written once, the
+    # batch read once: the bytes a step must move at the least
+    bound_bytes = (n_params * 4 * 7 + frames * 4) / PEAK_BYTES * 1e3
+    ok = (all(math.isfinite(v) for v in loss)
+          and np.mean(recon[-10:]) < np.mean(recon[:10])
+          and min(used[-10:]) > 1)
+    row = {"phase": "f0vq_train", "config": "f0_vqvae.json", "batch": B,
+           "f0_frames_per_step": frames, "steps": F0VQ_STEPS,
+           "parameters": n_params, "corpus_tracking_s": corpus_s,
+           "ms_per_step_median": med, "ms_per_step_min": min(ms),
+           "ms_per_step_max": max(ms),
+           "f0_frames_per_s": frames / (med / 1e3),
+           "wall_s": wall, "peak_memory_gb": peak / 1e9,
+           "step_gflop": flops / 1e9,
+           "bound_ms": max(bound_ops, bound_bytes),
+           "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+           "ema_update_ms": ema_ms,
+           "host_enqueue_ms_median": host_ms,
+           "recon_first10": float(np.mean(recon[:10])),
+           "recon_last10": float(np.mean(recon[-10:])),
+           "used_curr_first": used[0], "used_curr_last10_min":
+               min(used[-10:]), "used_curr_last": used[-1],
+           "usage_last": float(metrics[-1]["usage"]),
+           "entropy_last": float(metrics[-1]["entropy"]),
+           "profile": prof, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("f0-VQ-VAE training check failed")
+    return row
+
+
+def phase_prep_and_train_f0vq_cli(torch, ida) -> dict:
+    """The I_da preparation a user runs before `train_da`, on the card, on
+    files written to a temporary directory: PREP_UTTS synthetic 2 s
+    22.05 kHz wavs of three speakers with quiet edges, an HF-layout
+    HuBERT-base directory of `ida_main`'s weights.
+    `prep preprocess` (16 kHz, trimmed, padded) → `manifest` → `features`
+    (layer 6) → `kmeans_cli fit` (k = 100) → `quantize` → `parse-codes` →
+    `f0-stats`; `train_f0vq` on the train manifest with
+    configs/f0_vqvae.json, twice (2 steps, then resumed 2 → 4); one
+    CodeDataset batch (B = 4) from the manifests; then one I_da utterance
+    (`ida_main`'s 4 s input and trees) through `IdaInpainter` with the
+    pitch quantizer from the `train_f0vq` directory
+    (convert/ida_torch.py:load_f0_quantizer): K2 launches, kernel path vs
+    plain path. The units of five files again on the CPU: equal to the
+    card's wherever the nearest centroid wins by more than HuBERT's card
+    vs CPU tolerance could move it (the frames within that margin are
+    counted). Each step's wall time."""
+    import tempfile
+    from speech_inpainting_torch.cli import kmeans_cli, prep, train_f0vq
+    from speech_inpainting_torch.convert.from_jax import codegen_from_jax
+    from speech_inpainting_torch.convert.ida_torch import load_f0_quantizer
+    from speech_inpainting_torch.data.code_dataset import (CodeDataset,
+                                                           CodeDatasetConfig)
+    from speech_inpainting_torch.data.manifests import (parse_manifest,
+                                                        read_units_file)
+    from speech_inpainting_torch.infer.ida_inpaint import IdaInpainter
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    from speech_inpainting_torch.ops.resblock import (fused_resblock1,
+                                                      fused_resblock_step)
+    from speech_inpainting_torch.testing import (synthetic_utterance,
+                                                 write_hf_hubert)
+    setup = ida["setup"]
+    rng = np.random.default_rng(SEED + 210)
+    seconds = {}
+
+    def timed(name, main, argv):
+        t0 = time.perf_counter()
+        out = main([str(a) for a in argv])
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        (d / "raw").mkdir()
+        for i in range(PREP_UTTS):
+            quiet = rng.standard_normal(6615).astype(np.float32) * 1e-4
+            wav = np.concatenate([quiet, synthetic_utterance(rng, 2.0, 22050),
+                                  quiet])
+            _write_wav(d / "raw" / f"p{225 + i % 3}_{i:03d}.wav", wav, 22050)
+        t0 = time.perf_counter()
+        write_hf_hubert(d / "hubert", setup["hp"], HubertConfig.base())
+        seconds["write_hf_hubert"] = time.perf_counter() - t0
+        tsv = d / "m" / "train.tsv"
+        timed("preprocess", prep.main,
+              ["preprocess", "--root", d / "raw", "--out", d / "wavs"])
+        timed("manifest", prep.main,
+              ["manifest", "--root", d / "wavs", "--dest", d / "m"])
+        hub = ["--hubert", d / "hubert", "--layer", IDA_TAP]
+        timed("features", prep.main, ["features", "--manifest", tsv, *hub,
+                                      "--out", d / "feats" / "train.npy",
+                                      "--device", "cuda"])
+        timed("kmeans_fit", kmeans_cli.main,
+              ["fit", "--features", d / "feats" / "train.npy", "--k", 100,
+               "--iters", 20, "--n-init", 1, "--out", d / "km.npy",
+               "--device", "cuda"])
+        timed("quantize", prep.main, ["quantize", "--manifest", tsv, *hub,
+                                      "--kmeans", d / "km.npy", "--out",
+                                      d / "units.txt", "--device", "cuda"])
+        lines = tsv.read_text().splitlines()
+        (d / "m" / "five.tsv").write_text("\n".join(lines[:6]) + "\n")
+        timed("quantize_cpu_five_files", prep.main,
+              ["quantize", "--manifest", d / "m" / "five.tsv", *hub,
+               "--kmeans", d / "km.npy", "--out", d / "units_cpu.txt",
+               "--device", "cpu"])
+        timed("parse_codes", prep.main,
+              ["parse-codes", "--manifest", tsv, "--units", d / "units.txt",
+               "--outdir", d / "codes"])
+        timed("f0_stats", prep.main,
+              ["f0-stats", "--manifest", d / "codes" / "train.txt", "--out",
+               d / "f0_stats.json", "--device", "cuda"])
+        train = ["--config", F0VQ_CONFIG, "--train-manifest",
+                 d / "codes" / "train.txt", "--checkpoint-path", d / "f0vq",
+                 "--epochs", 2, "--device", "cuda"]
+        first = timed("train_f0vq", train_f0vq.main, train)
+        first_step = first.step
+        del first
+        second = timed("train_f0vq_resumed", train_f0vq.main, train)
+        checkpoints = sorted(p.name for p in (d / "f0vq").iterdir())
+
+        # card vs CPU units, where the margin exceeds what HuBERT's card vs
+        # CPU tolerance can move
+        card_units, cpu_units = (dict(read_units_file(d / n)) for n in
+                                 ("units.txt", "units_cpu.txt"))
+        feats = np.load(d / "feats" / "train.npy")
+        cents = np.load(d / "km.npy")
+        offsets, o = {}, 0
+        for line in lines[1:]:
+            name = Path(line.split("\t")[0]).stem
+            offsets[name] = o
+            o += len(card_units[name])
+        f64, c64 = feats.astype(np.float64), cents.astype(np.float64)
+        dist = ((f64 ** 2).sum(1)[:, None] - 2 * f64 @ c64.T
+                + (c64 ** 2).sum(1)[None])
+        order = np.argsort(dist, axis=1)[:, :2]
+        d1 = np.take_along_axis(dist, order, 1)
+        reach = 2 * np.linalg.norm(cents[order[:, 0]] - cents[order[:, 1]],
+                                   axis=1) * np.sqrt(feats.shape[1]) * \
+            HUBERT_ATOL
+        within = (d1[:, 1] - d1[:, 0]) <= reach
+        compared = mismatched = mismatched_outside = 0
+        for name, units in cpu_units.items():
+            sl = slice(offsets[name], offsets[name] + len(units))
+            diff = card_units[name] != units
+            compared += len(units)
+            mismatched += int(diff.sum())
+            mismatched_outside += int((diff & ~within[sl]).sum())
+
+        files, codes = parse_manifest(d / "codes" / "train.txt")
+        ida_cfg = json.loads(IDA_CONFIG.read_text())
+        t0 = time.perf_counter()
+        cds = CodeDataset(files, codes, CodeDatasetConfig(
+            segment_size=ida_cfg["segment_size"],
+            embedding_dim=ida_cfg["embedding_dim"]), device="cuda")
+        batch = next(cds.batches(4, epoch=0, seed=SEED))
+        seconds["code_dataset"] = time.perf_counter() - t0
+        seg = ida_cfg["segment_size"]
+        want_shapes = {"audio": (4, 1, seg), "code": (4, seg // 320),
+                       "f0": (4, 1, seg // 80),
+                       "mel_loss": (4, 80, seg // 256),
+                       "emb": (4, ida_cfg["embedding_dim"]),
+                       "spkr": (4, 1)}
+        shapes = {k: tuple(v.shape) for k, v in batch.items()}
+        dtypes_ok = (batch["code"].dtype == np.int32
+                     and batch["spkr"].dtype == np.int32
+                     and all(batch[k].dtype == np.float32 for k in
+                             ("audio", "f0", "mel_loss", "emb")))
+        batch_finite = all(np.isfinite(v).all() for v in batch.values())
+
+        t0 = time.perf_counter()
+        codegen = load_f0_quantizer(d / "f0vq", codegen_from_jax(
+            setup["cfg"], setup["params"], setup["vq"], device="cuda"))
+        trained_k_equal = bool(torch.equal(
+            codegen.fo_vqvae.vq.level_0.k, second.model.vq.level_0.k))
+        inp = IdaInpainter(setup["cfg"], None, None, HubertConfig.base(),
+                           setup["hp"], setup["centroids"],
+                           tap_layer=IDA_TAP, codegen=codegen,
+                           device="cuda")
+        seconds["load_inpainter"] = time.perf_counter() - t0
+    fused_resblock_step.launches = fused_resblock1.launches = 0
+    t0 = time.perf_counter()
+    out = inp(setup["utts"][0], IDA_MASK, emb=setup["emb"])
+    torch.cuda.synchronize()
+    seconds["ida_utterance"] = time.perf_counter() - t0
+    launches, k1 = fused_resblock_step.launches, fused_resblock1.launches
+    inp.codegen.generator.use_kernel = False
+    plain = inp(setup["utts"][0], IDA_MASK, emb=setup["emb"])
+    inp.codegen.generator.use_kernel = True
+    diff = max((out[k] - plain[k]).abs().max().item()
+               for k in ("audio_gen", "audio_inpainted"))
+    finite = all(bool(torch.isfinite(v.float()).all())
+                 for k, v in out.items() if k != "rtf")
+    same_shapes = (len(setup["utts"][0]) == IDA_SECONDS * 16000
+                   and launches == ida["launches"])
+    ok = (first_step == 2 and second.step == 4
+          and checkpoints == ["g_00000002", "g_00000004"]
+          and mismatched_outside == 0 and compared > 0
+          and shapes == want_shapes and dtypes_ok and batch_finite
+          and trained_k_equal and launches == ida["launches"]
+          and k1 == 0 and diff <= MAIN_ATOL and finite)
+    row = {"phase": "prep_and_train_f0vq_cli", "utterances": PREP_UTTS,
+           "seconds": seconds, "train_f0vq_steps": [first_step, second.step],
+           "checkpoints": checkpoints,
+           "units_compared_card_vs_cpu": compared,
+           "units_different": mismatched,
+           "units_different_outside_margin": mismatched_outside,
+           "frames_within_margin": int(within.sum()),
+           "frames": int(len(within)),
+           "code_dataset_shapes": shapes, "code_dataset_dtypes_ok": dtypes_ok,
+           "trained_codebook_loaded": trained_k_equal,
+           "k2_launches": launches, "k1_launches": k1,
+           "k2_shapes": "those of ida_kernel_check (the same 4 s input, "
+                        "generator and B = 1)" if same_shapes else "other",
+           "kernel_vs_plain_max_abs": diff, "tolerance": MAIN_ATOL,
+           "finite": finite, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("prep / train_f0vq CLI check failed")
+    return row
+
+
 def control_unpinned(torch) -> int:
     """The control of `default_flags` (`--unpinned`): the entry points'
     pinning (`device.full_f32`) is made a no-op before they are imported,
@@ -3104,6 +3597,11 @@ def main() -> int:
     phase_gan_step_parity(torch)
     phase_gan_train(torch)
     gcli = phase_train_hifigan_cli(torch)
+    f0ds, f0_corpus_s = _f0_corpus(torch)
+    phase_f0vq_step_parity(torch, f0ds)
+    phase_f0vq_train(torch, f0ds, f0_corpus_s)
+    del f0ds
+    f0cli = phase_prep_and_train_f0vq_cli(torch, ida)
     taken = {"I_ea": _plan_tiles(4, path["T"], path["kernel_sizes"],
                                  path["dilations"]),
              "I_da": _plan_tiles(1, ida["T"], ida["kernel_sizes"],
@@ -3169,7 +3667,8 @@ def main() -> int:
         # utterance per mask, one V1 forward of the vocode CLI (wav2wav,
         # --quantize-mel and mel2wav alike), one content-VQ forward, the GAN
         # trainer's validation sweep (one B = 16 forward of the folded
-        # generator) and one vocode forward from the g_ it wrote
+        # generator), one vocode forward from the g_ it wrote, and one I_da
+        # utterance whose pitch quantizer train_f0vq trained
         "launches_by_path": {
             "I_da_utterance": ida["launches"],
             "inpaint_da_cli_per_utterance_per_mask":
@@ -3179,7 +3678,9 @@ def main() -> int:
             "train_hifigan_validation_sweep":
                 gcli["runs"][0]["validation_k2_launches"],
             "vocode_from_trained_g_per_forward":
-                gcli["vocode_k2_launches_per_forward"]},
+                gcli["vocode_k2_launches_per_forward"],
+            "I_da_utterance_with_trained_pitch_quantizer":
+                f0cli["k2_launches"]},
         # the worst over the I_da generator's 45 step shapes, V1's 36 at
         # the vocode CLI's lengths and 36 at the GAN trainer's validation
         # sweep (B = 16), and the edge shapes

@@ -37,6 +37,7 @@ from ..models.hifigan import (Generator, HiFiGANConfig,
                               MultiPeriodDiscriminator,
                               MultiScaleDiscriminator, WNGenerator)
 from ..models.hifigan_fast import FastGenerator
+from ..models.jukebox import init_conv_stack_
 from ..models.hifigan_istft import ISTFTGenerator, ISTFTGeneratorConfig
 from ..models.hubert import (EncoderWithHead, HubertConfig, HubertModel,
                              init_flax_)
@@ -285,21 +286,44 @@ def _load_plain(module: nn.Module, tree: dict) -> None:
 
 
 def _load_codebooks(bottleneck: nn.Module, vq_tree: dict) -> None:
-    """A `vq` collection's levels (level_{i}/k) → the Bottleneck's `k`."""
+    """A `vq` collection's levels (level_{i}/k, and where the collection
+    has them the training buffers k_sum, k_elem, initted) → the
+    Bottleneck's buffers of those names."""
     for name, level in vq_tree.items():
-        getattr(bottleneck, name).k.copy_(_t(level["k"]))
+        block = getattr(bottleneck, name)
+        for key, value in level.items():
+            buf = getattr(block, key)
+            buf.copy_(torch.as_tensor(np.asarray(value)).to(buf.dtype))
 
 
 @torch.no_grad()
 def fo_vqvae_from_jax(cfg: FoVQVAEConfig, params: dict, vq_tree: dict,
                       device=None) -> FoVQVAE:
     """`FoVQVAE` params (encoder, decoder) and its `vq` collection
-    (vq/level_{i}/k) → FoVQVAE in float32 on `device`."""
+    (vq/level_{i}/k, …) → FoVQVAE in float32 on `device`, frozen."""
     device = resolve_device(device)
     model = FoVQVAE(cfg)
     _load_plain(model, params)
     _load_codebooks(model.vq, vq_tree["vq"])
     return model.requires_grad_(False).to(device)
+
+
+def trainable_fo_vqvae(cfg: FoVQVAEConfig, params: dict | None = None,
+                       vq_tree: dict | None = None, *, seed: int = 0,
+                       device=None) -> FoVQVAE:
+    """A FoVQVAE to train on `device`: from the JAX package's params and
+    `vq` collection where given, else freshly drawn from `seed` as the
+    JAX package's `model.init` draws it (models/jukebox.py:init_conv_stack_)
+    with an uninitialised codebook."""
+    device = resolve_device(device)
+    if params is None:
+        model = FoVQVAE(cfg)
+        gen = torch.Generator().manual_seed(seed)
+        init_conv_stack_(model.encoder, cfg.encoder, gen)
+        init_conv_stack_(model.decoder, cfg.decoder, gen)
+        return model.to(device)
+    return fo_vqvae_from_jax(cfg, params, vq_tree,
+                             device=device).requires_grad_(True)
 
 
 @torch.no_grad()

@@ -10,8 +10,13 @@ reference's files:
                      emb_c (unit lookup) or code_encoder.* and code_vq.*
                      (content VQ), emb_p, emb_s and fo_vqvae.*)
 Only the EMA codebook `k` is a registered buffer in the reference
-(vq.py:22); it becomes the port's `k` buffer. k_sum and k_elem are training
-state, which the port does not keep.
+(vq.py:22); it becomes the port's `k` buffer (k_sum and k_elem, training
+state, are not in the reference's files). The port's own pitch quantizer,
+trained by cli/train_f0vq.py, is a directory of `g_{step:08d}` files
+({"params", "vq", "opt", "steps"}): `load_f0vq_training_checkpoint` reads
+its newest, and `load_f0_quantizer` takes either form, as the JAX
+package's `train_da --f0-quantizer` does (cli/train_da.py:103-114), into a
+CodeGenerator's frozen `fo_vqvae`.
 
 Jukebox Sequential indices map as:
   encoder level: model.{i}.0 (strided conv), model.{i}.1 (Resnet1D),
@@ -23,6 +28,8 @@ A reversed-dilation decoder stores its blocks reversed.
 """
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -30,6 +37,7 @@ from ..device import resolve_device
 from ..models.codegen import (CodeGenerator, CodeGeneratorConfig, FoVQVAE,
                               FoVQVAEConfig)
 from ..models.jukebox import ConvStackConfig
+from ..utils.checkpoints import Checkpointer
 from .from_jax import (codegen_from_jax, fo_vqvae_from_jax,
                        reference_generator_tree)
 
@@ -135,6 +143,33 @@ def load_fo_vqvae_checkpoint(path, cfg: FoVQVAEConfig,
     device = resolve_device(device)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     return convert_fo_vqvae(ckpt["generator"], cfg, device=device)
+
+
+def load_f0vq_training_checkpoint(directory, cfg: FoVQVAEConfig,
+                                  device=None) -> FoVQVAE:
+    """The newest `g_*` that train_f0vq wrote under `directory` →
+    FoVQVAE (parameters and every codebook buffer) on `device`, frozen."""
+    device = resolve_device(device)
+    got = Checkpointer(directory).restore("g_")
+    if got is None:
+        raise FileNotFoundError(f"no g_ checkpoint under {directory}")
+    model = FoVQVAE(cfg)
+    model.load_state_dict({**got["params"], **got["vq"]})
+    return model.requires_grad_(False).to(device)
+
+
+def load_f0_quantizer(path, codegen: CodeGenerator) -> CodeGenerator:
+    """`codegen`'s pitch quantizer from `path`: a reference f0-VQ-VAE
+    `g_*` file, or a directory that train_f0vq wrote (its newest `g_`),
+    the JAX package's `train_da --f0-quantizer` branches. The quantizer
+    stays frozen, on `codegen`'s device."""
+    cfg = codegen.cfg.f0_quantizer
+    device = next(codegen.fo_vqvae.parameters()).device
+    fo = (load_fo_vqvae_checkpoint(path, cfg, device=device)
+          if Path(path).is_file()
+          else load_f0vq_training_checkpoint(path, cfg, device=device))
+    codegen.fo_vqvae.load_state_dict(fo.state_dict())
+    return codegen
 
 
 def load_code_generator_checkpoint(path, cfg: CodeGeneratorConfig,

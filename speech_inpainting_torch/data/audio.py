@@ -1,11 +1,17 @@
-"""Host-side wav I/O and resampling with numpy and scipy: the port's own
-copy of speech_inpainting_tpu/data/audio.py's `load_wav`, `save_wav`,
-`wav_info`, `resample` and `peak_normalize` (that module needs no JAX, but
-the port imports nothing of the JAX package).
+"""Host-side wav I/O, resampling, trimming and padding with numpy and
+scipy: the port's own copy of speech_inpainting_tpu/data/audio.py (that
+module needs no JAX, but the port imports nothing of the JAX package).
   - load_wav → float32 mono in [-1, 1] (int16 / 32768, the reference's
     convention), resampled on request;
   - save_wav writes int16 at ±(32768 − 1), clipping to [-1, 1];
-  - resample is polyphase (scipy's resample_poly), e.g. 22050 → 16000.
+  - resample is polyphase (scipy's resample_poly), e.g. 22050 → 16000;
+  - trim_silence: librosa.effects.trim semantics (top_db against the
+    largest frame RMS, frame 2048 / hop 512; I_da/scripts/preprocess.py:44);
+  - pad_to_multiple: zero-pad the tail to a multiple of 1280 samples
+    (preprocess.py:30-50);
+  - load_flac → the repository's native FLAC decoder (native/speechio.cc,
+    through data/native.py) for VCTK's flac corpus (preprocessing.py:
+    379-390); there is no libsndfile.
 """
 from __future__ import annotations
 
@@ -39,6 +45,19 @@ def load_wav(path, target_sr: Optional[int] = None
     return wav, sr
 
 
+def load_flac(path, target_sr: Optional[int] = None
+              ) -> Tuple[np.ndarray, int]:
+    """Decode FLAC with the native decoder → (float32 mono, sr), built on
+    first use; resampled (by the native polyphase resampler) if target_sr
+    is given."""
+    from . import native
+    if not native.available():
+        raise RuntimeError(
+            "FLAC decoding needs the native library; `make -C native` "
+            "failed or gcc is unavailable")
+    return native.load_wav(path, target_sr)
+
+
 def save_wav(path, wav, sr: int) -> None:
     """Write a float waveform as int16 (the reference's MAX_WAV_VALUE
     convention); an int16 array is written as it is."""
@@ -61,6 +80,38 @@ def resample(wav: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
     frac = Fraction(target_sr, sr)
     return resample_poly(wav, frac.numerator, frac.denominator).astype(
         np.float32)
+
+
+def _frame_rms(wav: np.ndarray, frame: int, hop: int) -> np.ndarray:
+    n = 1 + max(0, (len(wav) - frame)) // hop
+    idx = np.arange(frame)[None, :] + hop * np.arange(n)[:, None]
+    idx = np.minimum(idx, len(wav) - 1)
+    return np.sqrt(np.mean(np.square(wav[idx]), axis=1))
+
+
+def trim_silence(wav: np.ndarray, top_db: float = 20.0, frame: int = 2048,
+                 hop: int = 512) -> np.ndarray:
+    """librosa.effects.trim semantics: strip leading/trailing frames more
+    than top_db below the maximum RMS."""
+    if len(wav) == 0:
+        return wav
+    rms = _frame_rms(wav, frame, hop)
+    ref = rms.max()
+    if ref <= 0:
+        return wav
+    db = 20.0 * np.log10(np.maximum(rms / ref, 1e-10))
+    keep = np.nonzero(db > -top_db)[0]
+    if len(keep) == 0:
+        return wav[:0]
+    start = int(keep[0]) * hop
+    end = min(len(wav), int(keep[-1]) * hop + frame)
+    return wav[start:end]
+
+
+def pad_to_multiple(wav: np.ndarray, multiple: int = 1280) -> np.ndarray:
+    """Zero-pad the tail so len(wav) % multiple == 0."""
+    pad = (-len(wav)) % multiple
+    return np.pad(wav, (0, pad)) if pad else wav
 
 
 def peak_normalize(wav: np.ndarray, level: float = 0.95) -> np.ndarray:

@@ -13,8 +13,9 @@ Counterpart of speech_inpainting_tpu/models/codegen.py, for inference:
     units dequantize through its codebook, a waveform goes through both,
     and the forward returns (wav, commit, metrics).
 The flax `Embed` tables there are `nn.Embedding` here (`weight`
-(num_embeddings, features), copied unchanged). The VQ's training side
-(EMA update, restarts) is not ported.
+(num_embeddings, features), copied unchanged). `FoVQVAE.forward(train=True)`
+is the pitch quantizer's training forward (train/f0vq.py): the codebook's
+EMA update and restarts run inside it, from a CPU `torch.Generator`.
 """
 from __future__ import annotations
 
@@ -49,20 +50,24 @@ class FoVQVAEConfig:
 
 
 class FoVQVAE(nn.Module):
-    """f0 (B, 1, T) → (reconstruction, commit terms, metrics), eval side;
+    """f0 (B, 1, T) → (reconstruction, commit terms, metrics);
     `encode_units` is the CodeGenerator's tap, which needs no decoder."""
 
     def __init__(self, cfg: FoVQVAEConfig):
         super().__init__()
         self.cfg = cfg
         self.encoder = Encoder(cfg.encoder)
-        self.vq = Bottleneck(cfg.levels, cfg.l_bins, cfg.emb_width)
+        self.vq = Bottleneck(cfg.levels, cfg.l_bins, cfg.emb_width, cfg.mu)
         self.decoder = Decoder(cfg.decoder)
 
-    def forward(self, f0: torch.Tensor, *, train: bool = False):
+    def forward(self, f0: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """f0 (B, 1, T) → (reconstruction (B, 1, T), per-level commit
-        terms, per-level metrics)."""
-        _, h_q, commits, metrics = self.vq(self.encoder(f0), train=train)
+        terms, per-level metrics). With `train` the codebooks update and
+        restart from candidates drawn from `generator` (quantize/vq.py),
+        and the latents pass straight through to the decoder."""
+        _, h_q, commits, metrics = self.vq(self.encoder(f0), train=train,
+                                           generator=generator)
         return self.decoder(h_q), commits, metrics
 
     def encode_units(self, f0: torch.Tensor) -> torch.Tensor:
@@ -133,7 +138,8 @@ class CodeGenerator(nn.Module):
         self.cfg = cfg
         if cfg.content_vq:
             self.code_encoder = Encoder(cfg.code_encoder)
-            self.code_vq = Bottleneck(1, cfg.code_vq_bins, cfg.code_vq_width)
+            self.code_vq = Bottleneck(1, cfg.code_vq_bins, cfg.code_vq_width,
+                                      cfg.code_vq_mu)
         else:
             self.emb_c = nn.Embedding(cfg.num_embeddings, cfg.embedding_dim)
         if cfg.use_f0:

@@ -174,6 +174,29 @@ class Encoder(nn.Module):
         return xs
 
 
+@torch.no_grad()
+def init_conv_stack_(stack: nn.Module, cfg: ConvStackConfig,
+                     gen: torch.Generator) -> nn.Module:
+    """Redraw an Encoder's or Decoder's convs as the JAX package's
+    `TorchConv1d`/`TorchConvTranspose1d` init them, torch's default
+    distributions: weight and bias U(±1/√fan_in), fan_in = C_in·K for a
+    conv and C_out·K for a transposed conv; with cfg.zero_out each residual
+    block's closing k1 conv is zero. Drawn on the CPU from `gen`, in
+    module order, then copied to the stack's device."""
+    for name, m in stack.named_modules():
+        if not isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
+            continue
+        w = m.weight
+        fan_in = w.shape[1] * w.shape[2]
+        bound = 1.0 / math.sqrt(fan_in)
+        for p in (w, m.bias):
+            if cfg.zero_out and name.endswith(".conv1"):
+                p.zero_()
+            else:
+                p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) * bound)
+    return stack
+
+
 class Decoder(nn.Module):
     """List of per-level latents (B, output_emb_width, T_l) → (B,
     input_emb_width, T): from the last level down, each level's block, then

@@ -9,7 +9,10 @@ Presets:
     grid of HuBERT's 20 ms frames;
   - MODIFIED_MEL_22K: hop 441 at the hifi_gan mel's own pad (n_fft −
     hop)//2 = 291, not 312: the modified trainer's hop-441 mel;
-  - VOCODER_MEL_16K: VOCODER_MEL_22K's geometry at 16 kHz (I_da).
+  - VOCODER_MEL_16K: VOCODER_MEL_22K's geometry at 16 kHz (I_da);
+  - VOCODER_MEL_16K_FULLBAND: the same up to Nyquist, the I_da training
+    batches' loss mel (data/code_dataset.py).
+`mel_filterbank(htk=True)` is the HTK filterbank of data/wav2mel.py.
 The mel carries a gradient to its waveform (the trainers' mel-L1 loss).
 """
 from __future__ import annotations
@@ -48,25 +51,42 @@ def _mel_to_hz_slaney(mels):
                     min_log_hz * np.exp(logstep * (mels - min_log_mel)), freqs)
 
 
+def _hz_to_mel_htk(freq):
+    return 2595.0 * np.log10(1.0 + np.asarray(freq) / 700.0)
+
+
+def _mel_to_hz_htk(mels):
+    return 700.0 * (10.0 ** (np.asarray(mels) / 2595.0) - 1.0)
+
+
 @functools.lru_cache(maxsize=16)
 def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float,
-                   fmax: float | None) -> np.ndarray:
-    """Slaney-scale, slaney-normalised triangular filterbank (librosa's
-    filters.mel defaults), (n_mels, 1 + n_fft//2) float32."""
+                   fmax: float | None, htk: bool = False,
+                   norm: str | None = "default") -> np.ndarray:
+    """Triangular mel filterbank, (n_mels, 1 + n_fft//2) float32.
+
+    htk=False: librosa's filters.mel defaults (slaney scale, slaney norm),
+    every vocoder frontend. htk=True: the HTK scale without norm,
+    torchaudio's MelSpectrogram defaults, which the d-vector frontend
+    (data/wav2mel.py) takes. `norm` overrides that pairing: "slaney" forces
+    the area normalisation, None forces none."""
+    if norm == "default":
+        norm = None if htk else "slaney"
     if fmax is None:
         fmax = sr / 2.0
     n_freq = 1 + n_fft // 2
     fftfreqs = np.linspace(0.0, sr / 2.0, n_freq)
-    mel_pts = _mel_to_hz_slaney(np.linspace(_hz_to_mel_slaney(fmin),
-                                            _hz_to_mel_slaney(fmax),
-                                            n_mels + 2))
+    to_mel, to_hz = ((_hz_to_mel_htk, _mel_to_hz_htk) if htk
+                     else (_hz_to_mel_slaney, _mel_to_hz_slaney))
+    mel_pts = to_hz(np.linspace(to_mel(fmin), to_mel(fmax), n_mels + 2))
     fdiff = np.diff(mel_pts)
     ramps = mel_pts[:, None] - fftfreqs[None, :]
     lower = -ramps[:-2] / fdiff[:-1][:, None]
     upper = ramps[2:] / fdiff[1:][:, None]
     weights = np.maximum(0.0, np.minimum(lower, upper))
-    enorm = 2.0 / (mel_pts[2:n_mels + 2] - mel_pts[:n_mels])
-    weights *= enorm[:, None]
+    if norm == "slaney":
+        enorm = 2.0 / (mel_pts[2:n_mels + 2] - mel_pts[:n_mels])
+        weights *= enorm[:, None]
     return weights.astype(np.float32)
 
 
@@ -108,6 +128,7 @@ VOCODER_MEL_22K_FULLBAND = MelConfig(fmax=None)
 HUBERT_ALIGNED_MEL_22K = MelConfig(hop_size=441, pad=312)
 MODIFIED_MEL_22K = MelConfig(hop_size=441)
 VOCODER_MEL_16K = MelConfig(sampling_rate=16000)
+VOCODER_MEL_16K_FULLBAND = MelConfig(sampling_rate=16000, fmax=None)
 
 
 def mel_spectrogram(y: torch.Tensor,

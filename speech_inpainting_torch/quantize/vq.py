@@ -1,19 +1,37 @@
-"""The EMA vector-quantization bottleneck, evaluation side.
+"""The EMA vector-quantization bottleneck: nearest-code encoding, decoding,
+the eval forward and the training forward.
 
-Counterpart of speech_inpainting_tpu/quantize/vq.py: nearest-code encoding,
-decoding and the eval forward over a codebook `k` (k_bins, emb_width), a
-buffer filled from the JAX package's `vq` collection (convert/from_jax.py)
-or a reference checkpoint's `k` (convert/ida_torch.py). The EMA codebook
-update, the dead-code restart and their cross-device sums belong to
-training and are not ported yet: `forward(train=True)` raises.
+Counterpart of speech_inpainting_tpu/quantize/vq.py on one device (its
+`_psum` and `_bcast_from_zero` are identities there). The codebook `k`
+(k_bins, emb_width), the EMA sums `k_sum` and `k_elem` and the `initted`
+flag are buffers, so an optimizer never sees them; they are filled from
+the JAX package's `vq` collection (convert/from_jax.py), a reference
+checkpoint's `k` (convert/ida_torch.py) or the first training batch.
+
+The training forward, in the JAX package's order:
+  - one set of restart candidates per call, drawn before quantising:
+    k_bins random rows of the preprocessed input, tiled and jittered by
+    N(0, 1)·0.01/√d when it has fewer rows (`_tile_candidates`), from an
+    explicit CPU `torch.Generator`, so that a card run and a CPU run seeded
+    alike draw the same candidates;
+  - the first-batch init, `where(initted, k, candidates)`, k_elem set to 1;
+  - quantisation against the codebook after that init;
+  - the EMA update of k_sum and k_elem (mu), the codebook their ratio where
+    k_elem reaches `threshold` and a candidate elsewhere (the dead-code
+    restart: an unused code reads 0.99 < 1 after its first update);
+  - the straight-through output flat + sg(x_d − flat), whose gradient
+    reaches the encoder through `flat` only, and the commit term.
+The buffers' update runs without gradient and in full float32.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..device import full_f32
 from .kmeans import pairwise_sqdist
 
 
@@ -21,13 +39,36 @@ def _prenorm(x: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(x - x.mean()) / x.numel() ** 0.5
 
 
+def _tile_candidates(gen: Optional[torch.Generator], x: torch.Tensor,
+                     k_bins: int) -> torch.Tensor:
+    """k_bins random rows of x (N, d): when N < k_bins the rows are tiled
+    ⌈k_bins/N⌉ times and jittered by N(0, 1)·0.01/√d first; then a random
+    permutation's first k_bins. The jitter and the permutation are drawn
+    on the CPU from `gen` and moved to x's device."""
+    n, d = x.shape
+    if n < k_bins:
+        x = x.repeat((k_bins + n - 1) // n, 1)
+        noise = torch.randn(x.shape, generator=gen, dtype=x.dtype)
+        x = x + noise.to(x.device) * (0.01 / d ** 0.5)
+        n = x.shape[0]
+    perm = torch.randperm(n, generator=gen)[:k_bins]
+    return x[perm.to(x.device)]
+
+
 class EMAVectorQuantizer(nn.Module):
     """One BottleneckBlock: (N, C, T) ↔ labels (N, T)."""
 
-    def __init__(self, k_bins: int, emb_width: int):
+    def __init__(self, k_bins: int, emb_width: int, mu: float = 0.99,
+                 threshold: float = 1.0):
         super().__init__()
+        self.k_bins = k_bins
         self.emb_width = emb_width
+        self.mu = mu
+        self.threshold = threshold
         self.register_buffer("k", torch.zeros(k_bins, emb_width))
+        self.register_buffer("k_sum", torch.zeros(k_bins, emb_width))
+        self.register_buffer("k_elem", torch.zeros(k_bins))
+        self.register_buffer("initted", torch.zeros((), dtype=torch.bool))
 
     def _preprocess(self, x: torch.Tensor):
         """NCT → ((N·T, C), prenorm); a 2·emb_width input is the sum of its
@@ -58,33 +99,80 @@ class EMAVectorQuantizer(nn.Module):
     def decode(self, labels: torch.Tensor) -> torch.Tensor:
         return self.dequantise(labels).transpose(1, 2)
 
-    def forward(self, x: torch.Tensor, *, train: bool = False):
+    @torch.no_grad()
+    def _init_k(self, cand: torch.Tensor) -> None:
+        """The first-batch init, as a select on the flag (no host read)."""
+        self.k.copy_(torch.where(self.initted, self.k, cand))
+        self.k_sum.copy_(torch.where(self.initted, self.k_sum, cand))
+        self.k_elem.copy_(torch.where(self.initted, self.k_elem,
+                                      torch.ones_like(self.k_elem)))
+        self.initted.fill_(True)
+
+    @torch.no_grad()
+    def _update_k(self, flat: torch.Tensor, labels: torch.Tensor,
+                  cand: torch.Tensor) -> dict:
+        """The EMA update and the dead-code restart; their metrics."""
+        with full_f32():
+            one_hot = F.one_hot(labels, self.k_bins).to(flat.dtype)
+            _k_sum = one_hot.t() @ flat
+            _k_elem = one_hot.sum(dim=0)
+        old_k = self.k.clone()
+        self.k_sum.copy_(self.mu * self.k_sum + (1 - self.mu) * _k_sum)
+        self.k_elem.copy_(self.mu * self.k_elem + (1 - self.mu) * _k_elem)
+        usage = (self.k_elem[:, None] >= self.threshold).to(flat.dtype)
+        self.k.copy_(usage * (self.k_sum
+                              / self.k_elem.clamp(min=1e-8)[:, None])
+                     + (1 - usage) * cand)
+        _k_prob = _k_elem / _k_elem.sum().clamp(min=1e-8)
+        return {"entropy": -(_k_prob * torch.log(_k_prob + 1e-8)).sum(),
+                "used_curr": (_k_elem >= self.threshold).sum(),
+                "usage": usage.sum(),
+                "dk": torch.linalg.vector_norm(self.k - old_k)
+                / old_k.numel() ** 0.5}
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                update_k: bool = True,
+                generator: Optional[torch.Generator] = None):
         """x (N, C, T) → (labels (N, T), quantized (N, emb_width, T),
-        commit ‖x_d − x‖² / x.numel() over the preprocessed x, metrics
-        {fit: mean nearest distance, pn: prenorm}). In eval the
-        straight-through output is the codebook rows themselves."""
-        if train:
-            raise NotImplementedError(
-                "the VQ's training forward (EMA update, dead-code restart) "
-                "is not ported")
+        commit ‖sg(x_d) − x‖² / x.numel() over the preprocessed x, metrics
+        {fit: mean nearest distance, pn: prenorm; in training with
+        update_k also entropy, used_curr, usage, dk}). In eval the output
+        is the codebook rows themselves; in training the straight-through
+        flat + sg(x_d − flat), and with update_k the buffers are updated
+        (candidates drawn from `generator`)."""
         n, _, t = x.shape
         flat, prenorm = self._preprocess(x)
-        labels, fit = self.quantise(flat)
-        x_d = self.dequantise(labels)
+        if not train:
+            labels, fit = self.quantise(flat)
+            x_d = self.dequantise(labels)
+            commit = ((x_d - flat) ** 2).sum() / flat.numel()
+            x_out = x_d.reshape(n, t, -1).transpose(1, 2)
+            return labels.reshape(n, t), x_out, commit, {"fit": fit,
+                                                         "pn": prenorm}
+        if update_k:
+            cand = _tile_candidates(generator, flat.detach(), self.k_bins)
+            self._init_k(cand)
+        with torch.no_grad():
+            labels, fit = self.quantise(flat.detach())
+            x_d = self.dequantise(labels)
+        metrics = {"fit": fit, "pn": prenorm}
+        if update_k:
+            metrics.update(self._update_k(flat.detach(), labels, cand))
         commit = ((x_d - flat) ** 2).sum() / flat.numel()
-        x_out = x_d.reshape(n, t, -1).transpose(1, 2)
-        return labels.reshape(n, t), x_out, commit, {"fit": fit,
-                                                     "pn": prenorm}
+        x_st = flat + (x_d - flat).detach()
+        x_out = x_st.reshape(n, t, -1).transpose(1, 2)
+        return labels.reshape(n, t), x_out, commit, metrics
 
 
 class Bottleneck(nn.Module):
     """Multi-level bottleneck; level i's codebook is `level_{i}`."""
 
-    def __init__(self, levels: int, l_bins: int, emb_width: int):
+    def __init__(self, levels: int, l_bins: int, emb_width: int,
+                 mu: float = 0.99):
         super().__init__()
         for i in range(levels):
             self.add_module(f"level_{i}", EMAVectorQuantizer(l_bins,
-                                                             emb_width))
+                                                             emb_width, mu))
 
     def encode(self, xs: Sequence[torch.Tensor]) -> list:
         return [b.encode(x) for b, x in zip(self.children(), xs)]
@@ -92,8 +180,11 @@ class Bottleneck(nn.Module):
     def decode(self, zs: Sequence[torch.Tensor]) -> list:
         return [b.decode(z) for b, z in zip(self.children(), zs)]
 
-    def forward(self, xs: Sequence[torch.Tensor], *, train: bool = False):
-        """Per-level (labels, quantized, commit, metrics), as four lists."""
-        out = [b(x, train=train) for b, x in zip(self.children(), xs)]
+    def forward(self, xs: Sequence[torch.Tensor], *, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Per-level (labels, quantized, commit, metrics), as four lists;
+        training updates every level's codebook (update_k=train)."""
+        out = [b(x, train=train, update_k=train, generator=generator)
+               for b, x in zip(self.children(), xs)]
         zs, xqs, commits, metrics = map(list, zip(*out))
         return zs, xqs, commits, metrics

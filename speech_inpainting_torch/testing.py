@@ -14,6 +14,7 @@ and `code_generator_state_dict`.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 from pathlib import Path
@@ -452,14 +453,34 @@ def synthetic_utterance(rng, seconds: float, sr: int = 16000) -> np.ndarray:
     return x.astype(np.float32)
 
 
-# How many of a tensor's elements a float32 GAN step may leave outside both
-# of parity_gate's gates, max(NOISE_LEAST, NOISE_SHARE × its size), and how
-# far (× its float64 tolerance) each may lie from float64: a leaky ReLU or
-# |·| input within rounding of its kink takes its slope by the rounding's
-# sign and moves every gradient behind it, the whole of a narrow layer's
-# bias. Set between the readings of that noise and those of planted faults
-# (tests/test_torch_gan_gate.py; PERF.md §6).
-NOISE_SHARE, NOISE_LEAST, NOISE_EXCESS = 0.5, 16, 1000.0
+@dataclasses.dataclass(frozen=True)
+class NoiseLimits:
+    """How many of a tensor's elements a float32 GAN step may leave
+    outside both of parity_gate's gates, and how far (× its float64
+    tolerance) each may lie from float64: a leaky ReLU or |·| input within
+    rounding of its kink takes its slope by the rounding's sign and moves
+    every gradient behind it, the whole of a narrow layer's bias. A tensor
+    of more than NOISE_SMALL elements may hold max(least, floor(share ×
+    its size)) of them; a smaller one (a narrow conv's bias or gains,
+    whose noise moves it whole) is held by the excess alone."""
+    share: float
+    excess: float
+    least: int = 0
+
+
+# Set from the readings of that noise (PERF.md §6): the largest share of a
+# tensor of more than 16 elements outside was 0.1% on the CPU's full-width
+# steps and 7.0% on the card; the largest excess 46.1 (an MSD conv's v in
+# the modified recipe's span step) on the CPU and 13.9 on the card. Planted
+# faults (tests/test_torch_gan_gate.py) read 100% or an excess of 99 to ∞.
+NOISE = NoiseLimits(share=0.1, excess=100.0)
+NOISE_SMALL = 16
+# Tensors whose readings lie above NOISE.share, held by name and size to
+# their own share: the gate test's reduced generator (4 channels in its
+# second stage) read up to 9 and 5 of their 48 elements outside (first
+# moments; 8 and 4 in the second), each within 5.5 × its tolerance.
+NOISE_HELD = {("['generator']['resblocks_1_0']['convs1_0']['v']", 48): 0.25,
+              ("['generator']['resblocks_1_0']['convs2_0']['v']", 48): 0.25}
 # One AdamW update (b1 0.8, b2 0.99) moves an element by at most 1.005·lr
 # over its first two steps, so two runs that part in a gradient's sign part
 # by at most ADAMW_NOISE·lr
@@ -483,23 +504,26 @@ def noise_tolerance(want, ref) -> float:
 
 def parity_gate(got: dict, want: dict, ref: dict,
                 exempt: dict | None = None,
-                bound: float | None = None) -> dict:
+                bound: float | None = None,
+                limits: NoiseLimits = NOISE) -> dict:
     """Elementwise parity of the tensors `got` against `want` (the same
     names; arrays or tensors), with `ref` the computation of `want` in
     float64. An element passes within rtol 2e-5, atol 2e-6 of `want`, or
     within its tensor's `noise_tolerance(want, ref)` of `ref`; one that
-    passes neither is outside. Each tensor may hold max(NOISE_LEAST,
-    floor(NOISE_SHARE × its size)) outside elements, each within
-    NOISE_EXCESS × that tolerance of `ref`. Outside elements that
-    `exempt[name]` (a boolean mask) marks are held instead to `bound`,
-    their largest gap to `want`.
+    passes neither is outside. A tensor of more than NOISE_SMALL elements
+    may hold max(limits.least, floor(share × its size)) outside elements,
+    the share limits.share or, for a (name, size) in NOISE_HELD, its own;
+    every outside element must lie within limits.excess × that tolerance
+    of `ref`. Outside elements that `exempt[name]` (a boolean mask) marks
+    are held instead to `bound`, their largest gap to `want`.
 
     Returns {"f64": the tensors that needed the float64 gate, "outside":
     {name: elements outside, the exempt ones apart}, "exempt": {name:
-    exempt elements outside}, "share_max": the largest share of a tensor
-    outside, "excess_max": the largest gap to `ref` of a (not exempt)
-    outside element over its tensor's tolerance, "failed": the tensors
-    past the share, the excess or the bound, "ok"}."""
+    exempt elements outside}, "share_max": the largest share outside of a
+    tensor of more than NOISE_SMALL elements, "excess_max": the largest
+    gap to `ref` of a (not exempt) outside element over its tensor's
+    tolerance, "failed": the tensors past the share, the excess or the
+    bound, "ok"}."""
     assert got.keys() == want.keys() == ref.keys()
     out = {"f64": [], "outside": {}, "exempt": {}, "share_max": 0.0,
            "excess_max": 0.0, "failed": []}
@@ -526,11 +550,14 @@ def parity_gate(got: dict, want: dict, ref: dict,
         if not n:
             continue
         out["outside"][name] = n
-        out["share_max"] = max(out["share_max"], n / w.size)
         worst = float(far[free].max() / tol) if tol else math.inf
         out["excess_max"] = max(out["excess_max"], worst)
-        if n > max(NOISE_LEAST, math.floor(NOISE_SHARE * w.size)) or (
-                worst > NOISE_EXCESS):
+        allowed = w.size
+        if w.size > NOISE_SMALL:
+            out["share_max"] = max(out["share_max"], n / w.size)
+            share = NOISE_HELD.get((name, w.size), limits.share)
+            allowed = max(limits.least, math.floor(share * w.size))
+        if n > allowed or worst > limits.excess:
             out["failed"].append(name)
     out["ok"] = not out["failed"]
     return out

@@ -39,7 +39,8 @@ from ..models.hifigan_istft import ISTFTGenerator
 from .guard import SkipNonFinite
 from .optim import AdamW, exponential_decay
 
-_ITEM_10 = "ROADMAP Queue 1 item 10 (I_da training)"
+_ITEM_10 = ("ROADMAP Queue 1 item 10 (b), the unit-HiFi-GAN trainer: the "
+            "next slice of I_da training")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -39,7 +39,11 @@ class AdamW(torch.optim.Optimizer):
         u  ← (mu / (1 − b1^t)) / (√(nu / (1 − b2^t)) + eps) + wd·p,
         p  ← p + (−lr)·u.
     One count t per group, advanced only by `step`; multi-tensor (foreach)
-    operations over each group. With a `schedule`, each group's lr is
+    operations over each group. A parameter whose `.grad` is None is
+    stepped with a zero gradient, as optax steps every leaf of its tree:
+    its moments decay and the weight decay still moves it. A parameter
+    that must not move (optax.set_to_zero in the JAX package) stays out of
+    the optimizer. With a `schedule`, each group's lr is
     schedule(t − 1), the count before this update, as optax's
     scale_by_schedule reads its own count (advanced with Adam's)."""
 
@@ -53,7 +57,7 @@ class AdamW(torch.optim.Optimizer):
     @torch.no_grad()
     def step(self, closure=None):
         for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
+            params = group["params"]
             if not params:
                 continue
             for p in params:
@@ -62,7 +66,8 @@ class AdamW(torch.optim.Optimizer):
                                          exp_avg=torch.zeros_like(p),
                                          exp_avg_sq=torch.zeros_like(p))
             states = [self.state[p] for p in params]
-            grads = [p.grad for p in params]
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in params]
             mu = [s["exp_avg"] for s in states]
             nu = [s["exp_avg_sq"] for s in states]
             b1, b2 = group["betas"]

@@ -68,8 +68,11 @@ def test_quantizer_eval_forward_matches_jax(rng, width):
     assert sorted(got[3]) == sorted(metrics) == ["fit", "pn"]
     for k in metrics:
         _close(got[3][k], metrics[k])
-    with pytest.raises(NotImplementedError):
-        port(torch.tensor(x), train=True)
+    # the training forward (tests/test_torch_vq_train.py) now runs
+    train = port(torch.tensor(x), train=True,
+                 generator=torch.Generator().manual_seed(0))
+    assert sorted(train[3]) == ["dk", "entropy", "fit", "pn", "usage",
+                                "used_curr"]
 
 
 def test_bottleneck_eval_forward_matches_jax(rng):

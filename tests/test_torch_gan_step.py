@@ -12,9 +12,9 @@ of each, and the MSD's u/v by testing.parity_gate, each leaf one tensor:
 JAX's element within rtol 2e-5, atol 2e-6 of the port's, or, where
 float32 cannot give that, within the port's own float32 noise of the
 port's step in float64 from the same start (`step_gates`); of the
-elements that pass neither, each tensor may hold max(16, half its size),
-each within 1000 × that tolerance (testing.NOISE_*, between the readings
-of float32's kink noise and those of planted faults:
+elements that pass neither, a tensor of more than 16 elements may hold a
+tenth, and each must lie within 100 × that tolerance (testing.NOISE, set
+from the readings of float32's kink noise, below those of planted faults:
 test_torch_gan_gate.py). Run with `-s`, each step prints its largest
 share and excess. The vanilla run takes steps_per_epoch = 1, so its
 second update already runs at the decayed learning rate; the optimizer
@@ -148,7 +148,7 @@ def params(ps) -> dict:
             "mpd": mpd_tree(ps.mpd), "msd": msd_tree(ps.msd)}
 
 
-def step_gates(js, ps, ref, lr=2e-4) -> dict:
+def step_gates(js, ps, ref, lr=2e-4, limits=testing.NOISE) -> dict:
     """testing.parity_gate of every parameter, both AdamW moments and the
     u/v after one step from the same start: the JAX state `js` against the
     port's `ps`, beside `ref`, the port's step in float64, each leaf one
@@ -165,13 +165,14 @@ def step_gates(js, ps, ref, lr=2e-4) -> dict:
     out = {"param": testing.parity_gate(
         *leaves({"generator": js.g_params, **js.d_params}, params(ps),
                 params(ref)),
-        exempt=zero, bound=testing.ADAMW_NOISE * lr)}
+        exempt=zero, bound=testing.ADAMW_NOISE * lr, limits=limits)}
     for pk, jk in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
         out[jk] = testing.parity_gate(*leaves(
-            jax_moments(js, jk), moments(ps, pk), moments(ref, pk)))
+            jax_moments(js, jk), moments(ps, pk), moments(ref, pk)),
+            limits=limits)
     out["u/v"] = testing.parity_gate(*leaves(
         {"msd": js.spectral}, {"msd": spectral_tree(ps.msd)},
-        {"msd": spectral_tree(ref.msd)}))
+        {"msd": spectral_tree(ref.msd)}), limits=limits)
     return out
 
 

@@ -112,6 +112,17 @@ def test_entry_points_refuse_the_cpu_unasked():
     from speech_inpainting_torch.models.codegen import CodeGeneratorConfig
     from speech_inpainting_torch.models.hifigan import HiFiGANConfig
     from speech_inpainting_torch.models.hubert import HubertConfig
+    from speech_inpainting_torch.cli import prep, train_f0vq
+    from speech_inpainting_torch.convert.from_jax import trainable_fo_vqvae
+    from speech_inpainting_torch.convert.ida_torch import (
+        load_f0vq_training_checkpoint)
+    from speech_inpainting_torch.data.code_dataset import (
+        CodeDataset, F0DatasetTPU, _extract_f0_bucketed)
+    from speech_inpainting_torch.data.wav2mel import Wav2Mel
+    from speech_inpainting_torch.ops.f0 import F0Config
+    from speech_inpainting_torch.train.f0vq import (F0VQConfig,
+                                                    make_f0vq_eval,
+                                                    make_f0vq_step)
     assert resolve_device("cpu").type == "cpu"
     cg = CodeGeneratorConfig(HiFiGANConfig(), use_f0=False)
     for call in (lambda: resolve_device(),
@@ -149,7 +160,22 @@ def test_entry_points_refuse_the_cpu_unasked():
                                                   HiFiGANConfig()),
                  lambda: default_discriminators(GANConfig()),
                  lambda: train_hifigan.main(["--wavs", ".",
-                                             "--checkpoint-path", "c"])):
+                                             "--checkpoint-path", "c"]),
+                 lambda: trainable_fo_vqvae(FoVQVAEConfig()),
+                 lambda: make_f0vq_step(F0VQConfig()),
+                 lambda: make_f0vq_eval(F0VQConfig()),
+                 lambda: load_f0vq_training_checkpoint(".", FoVQVAEConfig()),
+                 lambda: F0DatasetTPU([]),
+                 lambda: CodeDataset([], []),
+                 lambda: _extract_f0_bucketed(np.zeros(8), F0Config()),
+                 lambda: Wav2Mel(),
+                 lambda: train_f0vq.main(["--config", "c", "--train-manifest",
+                                          "m", "--checkpoint-path", "c"]),
+                 lambda: prep.main(["f0-stats", "--manifest", "m", "--out",
+                                    "o"]),
+                 lambda: prep.main(["quantize", "--manifest", "m",
+                                    "--hubert", "h", "--kmeans", "k.npy",
+                                    "--out", "o"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
