@@ -158,7 +158,28 @@ it stopped); any failure raises and exits non-zero:
                 directory), `train_f0vq` twice (2 steps, resumed 2 → 4), a
                 CodeDataset batch, then one I_da utterance with the trained
                 pitch quantizer (180 K2 launches, kernel vs plain path);
-                units card vs CPU equal outside HuBERT's tolerance margin.
+                units card vs CPU equal outside HuBERT's tolerance margin;
+  da_step_parity  the unit HiFi-GAN trainer's step (train/da.py), card vs
+                CPU beside a float64 CPU step, by testing.parity_gate:
+                decoder-only at configs/da_hubert100_lut.json's full width
+                (B = 2 × 8960, the full MPD and MSD, the pitch quantizer
+                frozen: bit-unchanged, out of the optimizer), and the joint
+                regime at `content_vq`'s geometry (3 steps from an
+                uninitialised codebook with the same candidates, labels
+                equal, a restart on the first step; a NaN batch bit-equal,
+                one skip; the candidates' generator through g_/do_);
+  da_train      the decoder-only DA trainer at full width, B = 16 × 8960
+                (8.96 s of audio a step), 8 f32 steps and 8 with disc_bf16
+                (ms per step by CUDA events, audio-s/s, peak memory, the
+                bound), one f32 step profiled; losses finite, mel_error
+                falling, the pitch quantizer unchanged;
+  train_da_cli  `train_da.main` twice (1 step, resumed 1 → 2) on what
+                `prep_and_train_f0vq_cli` left (its units manifest, f0
+                statistics and train_f0vq directory), a validation sweep
+                of 90 K2 launches each, then one I_da utterance through the
+                CodeGenerator it trained (180 K2 launches, kernel vs plain
+                path), and K2 against its plain version at the sweep's
+                shapes.
 Then the `spills` and `kernels` lines (K1's and K2's launches on each
 path), and last {"ok": true, "device": {...}}.
 
@@ -2534,10 +2555,12 @@ def _conv_len(n, k, s, p):
     return (n + 2 * p - k) // s + 1
 
 
-def gan_flops(gcfg, B, seg) -> dict:
+def gan_flops(gcfg, B, seg, frames=None) -> dict:
     """Forward FLOP (a multiply-add counts 2) of the generator on B crops of
-    `seg` samples, and of the MPD and MSD together on B waveforms."""
-    T = 1 + (seg + 768 - 1024) // 256           # VOCODER_MEL_22K frames
+    `seg` samples from `frames` input frames (the VOCODER_MEL_22K frames of
+    the crop where None), and of the MPD and MSD together on B
+    waveforms."""
+    T = frames or 1 + (seg + 768 - 1024) // 256
     c = gcfg.upsample_initial_channel
     gen = 2 * B * T * c * gcfg.in_dim * 7
     ch = c
@@ -2574,15 +2597,17 @@ def gan_flops(gcfg, B, seg) -> dict:
     return {"generator": gen, "discriminators": disc}
 
 
-def gan_step_bound_ms(gcfg, B, seg, n_params, disc_bf16) -> dict:
+def gan_step_bound_ms(gcfg, B, seg, n_params, disc_bf16,
+                      frames=None) -> dict:
     """The least time of one GAN step: its FLOP over the peak rate of each
     part's type (the generator in full f32; the discriminators in f32, or
     bf16 on the tensor cores with disc_bf16), plus AdamW's bytes over the
     memory rate. FLOP: the generator's forward and backward (3× its
     forward); the discriminators' D phase (real and fake forward, weight
     and input gradients: 6× one forward over B) and G phase (real and
-    fake forward, the fake's input gradient only: 3×)."""
-    f = gan_flops(gcfg, B, seg)
+    fake forward, the fake's input gradient only: 3×). `frames`: the
+    generator's input frames (gan_flops)."""
+    f = gan_flops(gcfg, B, seg, frames)
     gen_ms = 1e3 * 3 * f["generator"] / PEAK_FLOPS["float32"]
     disc_ms = 1e3 * 9 * f["discriminators"] / PEAK_FLOPS[
         "bfloat16" if disc_bf16 else "float32"]
@@ -3337,7 +3362,7 @@ def phase_f0vq_train(torch, ds, corpus_s) -> dict:
     return row
 
 
-def phase_prep_and_train_f0vq_cli(torch, ida) -> dict:
+def phase_prep_and_train_f0vq_cli(torch, ida, d: Path) -> dict:
     """The I_da preparation a user runs before `train_da`, on the card, on
     files written to a temporary directory: PREP_UTTS synthetic 2 s
     22.05 kHz wavs of three speakers with quiet edges, an HF-layout
@@ -3353,8 +3378,8 @@ def phase_prep_and_train_f0vq_cli(torch, ida) -> dict:
     plain path. The units of five files again on the CPU: equal to the
     card's wherever the nearest centroid wins by more than HuBERT's card
     vs CPU tolerance could move it (the frames within that margin are
-    counted). Each step's wall time."""
-    import tempfile
+    counted). Each step's wall time. Its files stay in `d` for
+    `train_da_cli`."""
     from speech_inpainting_torch.cli import kmeans_cli, prep, train_f0vq
     from speech_inpainting_torch.convert.from_jax import codegen_from_jax
     from speech_inpainting_torch.convert.ida_torch import load_f0_quantizer
@@ -3379,113 +3404,111 @@ def phase_prep_and_train_f0vq_cli(torch, ida) -> dict:
         seconds[name] = time.perf_counter() - t0
         return out
 
-    with tempfile.TemporaryDirectory() as tmp:
-        d = Path(tmp)
-        (d / "raw").mkdir()
-        for i in range(PREP_UTTS):
-            quiet = rng.standard_normal(6615).astype(np.float32) * 1e-4
-            wav = np.concatenate([quiet, synthetic_utterance(rng, 2.0, 22050),
-                                  quiet])
-            _write_wav(d / "raw" / f"p{225 + i % 3}_{i:03d}.wav", wav, 22050)
-        t0 = time.perf_counter()
-        write_hf_hubert(d / "hubert", setup["hp"], HubertConfig.base())
-        seconds["write_hf_hubert"] = time.perf_counter() - t0
-        tsv = d / "m" / "train.tsv"
-        timed("preprocess", prep.main,
-              ["preprocess", "--root", d / "raw", "--out", d / "wavs"])
-        timed("manifest", prep.main,
-              ["manifest", "--root", d / "wavs", "--dest", d / "m"])
-        hub = ["--hubert", d / "hubert", "--layer", IDA_TAP]
-        timed("features", prep.main, ["features", "--manifest", tsv, *hub,
-                                      "--out", d / "feats" / "train.npy",
-                                      "--device", "cuda"])
-        timed("kmeans_fit", kmeans_cli.main,
-              ["fit", "--features", d / "feats" / "train.npy", "--k", 100,
-               "--iters", 20, "--n-init", 1, "--out", d / "km.npy",
-               "--device", "cuda"])
-        timed("quantize", prep.main, ["quantize", "--manifest", tsv, *hub,
-                                      "--kmeans", d / "km.npy", "--out",
-                                      d / "units.txt", "--device", "cuda"])
-        lines = tsv.read_text().splitlines()
-        (d / "m" / "five.tsv").write_text("\n".join(lines[:6]) + "\n")
-        timed("quantize_cpu_five_files", prep.main,
-              ["quantize", "--manifest", d / "m" / "five.tsv", *hub,
-               "--kmeans", d / "km.npy", "--out", d / "units_cpu.txt",
-               "--device", "cpu"])
-        timed("parse_codes", prep.main,
-              ["parse-codes", "--manifest", tsv, "--units", d / "units.txt",
-               "--outdir", d / "codes"])
-        timed("f0_stats", prep.main,
-              ["f0-stats", "--manifest", d / "codes" / "train.txt", "--out",
-               d / "f0_stats.json", "--device", "cuda"])
-        train = ["--config", F0VQ_CONFIG, "--train-manifest",
-                 d / "codes" / "train.txt", "--checkpoint-path", d / "f0vq",
-                 "--epochs", 2, "--device", "cuda"]
-        first = timed("train_f0vq", train_f0vq.main, train)
-        first_step = first.step
-        del first
-        second = timed("train_f0vq_resumed", train_f0vq.main, train)
-        checkpoints = sorted(p.name for p in (d / "f0vq").iterdir())
+    (d / "raw").mkdir()
+    for i in range(PREP_UTTS):
+        quiet = rng.standard_normal(6615).astype(np.float32) * 1e-4
+        wav = np.concatenate([quiet, synthetic_utterance(rng, 2.0, 22050),
+                              quiet])
+        _write_wav(d / "raw" / f"p{225 + i % 3}_{i:03d}.wav", wav, 22050)
+    t0 = time.perf_counter()
+    write_hf_hubert(d / "hubert", setup["hp"], HubertConfig.base())
+    seconds["write_hf_hubert"] = time.perf_counter() - t0
+    tsv = d / "m" / "train.tsv"
+    timed("preprocess", prep.main,
+          ["preprocess", "--root", d / "raw", "--out", d / "wavs"])
+    timed("manifest", prep.main,
+          ["manifest", "--root", d / "wavs", "--dest", d / "m"])
+    hub = ["--hubert", d / "hubert", "--layer", IDA_TAP]
+    timed("features", prep.main, ["features", "--manifest", tsv, *hub,
+                                  "--out", d / "feats" / "train.npy",
+                                  "--device", "cuda"])
+    timed("kmeans_fit", kmeans_cli.main,
+          ["fit", "--features", d / "feats" / "train.npy", "--k", 100,
+           "--iters", 20, "--n-init", 1, "--out", d / "km.npy",
+           "--device", "cuda"])
+    timed("quantize", prep.main, ["quantize", "--manifest", tsv, *hub,
+                                  "--kmeans", d / "km.npy", "--out",
+                                  d / "units.txt", "--device", "cuda"])
+    lines = tsv.read_text().splitlines()
+    (d / "m" / "five.tsv").write_text("\n".join(lines[:6]) + "\n")
+    timed("quantize_cpu_five_files", prep.main,
+          ["quantize", "--manifest", d / "m" / "five.tsv", *hub,
+           "--kmeans", d / "km.npy", "--out", d / "units_cpu.txt",
+           "--device", "cpu"])
+    timed("parse_codes", prep.main,
+          ["parse-codes", "--manifest", tsv, "--units", d / "units.txt",
+           "--outdir", d / "codes"])
+    timed("f0_stats", prep.main,
+          ["f0-stats", "--manifest", d / "codes" / "train.txt", "--out",
+           d / "f0_stats.json", "--device", "cuda"])
+    train = ["--config", F0VQ_CONFIG, "--train-manifest",
+             d / "codes" / "train.txt", "--checkpoint-path", d / "f0vq",
+             "--epochs", 2, "--device", "cuda"]
+    first = timed("train_f0vq", train_f0vq.main, train)
+    first_step = first.step
+    del first
+    second = timed("train_f0vq_resumed", train_f0vq.main, train)
+    checkpoints = sorted(p.name for p in (d / "f0vq").iterdir())
 
-        # card vs CPU units, where the margin exceeds what HuBERT's card vs
-        # CPU tolerance can move
-        card_units, cpu_units = (dict(read_units_file(d / n)) for n in
-                                 ("units.txt", "units_cpu.txt"))
-        feats = np.load(d / "feats" / "train.npy")
-        cents = np.load(d / "km.npy")
-        offsets, o = {}, 0
-        for line in lines[1:]:
-            name = Path(line.split("\t")[0]).stem
-            offsets[name] = o
-            o += len(card_units[name])
-        f64, c64 = feats.astype(np.float64), cents.astype(np.float64)
-        dist = ((f64 ** 2).sum(1)[:, None] - 2 * f64 @ c64.T
-                + (c64 ** 2).sum(1)[None])
-        order = np.argsort(dist, axis=1)[:, :2]
-        d1 = np.take_along_axis(dist, order, 1)
-        reach = 2 * np.linalg.norm(cents[order[:, 0]] - cents[order[:, 1]],
-                                   axis=1) * np.sqrt(feats.shape[1]) * \
-            HUBERT_ATOL
-        within = (d1[:, 1] - d1[:, 0]) <= reach
-        compared = mismatched = mismatched_outside = 0
-        for name, units in cpu_units.items():
-            sl = slice(offsets[name], offsets[name] + len(units))
-            diff = card_units[name] != units
-            compared += len(units)
-            mismatched += int(diff.sum())
-            mismatched_outside += int((diff & ~within[sl]).sum())
+    # card vs CPU units, where the margin exceeds what HuBERT's card vs
+    # CPU tolerance can move
+    card_units, cpu_units = (dict(read_units_file(d / n)) for n in
+                             ("units.txt", "units_cpu.txt"))
+    feats = np.load(d / "feats" / "train.npy")
+    cents = np.load(d / "km.npy")
+    offsets, o = {}, 0
+    for line in lines[1:]:
+        name = Path(line.split("\t")[0]).stem
+        offsets[name] = o
+        o += len(card_units[name])
+    f64, c64 = feats.astype(np.float64), cents.astype(np.float64)
+    dist = ((f64 ** 2).sum(1)[:, None] - 2 * f64 @ c64.T
+            + (c64 ** 2).sum(1)[None])
+    order = np.argsort(dist, axis=1)[:, :2]
+    d1 = np.take_along_axis(dist, order, 1)
+    reach = 2 * np.linalg.norm(cents[order[:, 0]] - cents[order[:, 1]],
+                               axis=1) * np.sqrt(feats.shape[1]) * \
+        HUBERT_ATOL
+    within = (d1[:, 1] - d1[:, 0]) <= reach
+    compared = mismatched = mismatched_outside = 0
+    for name, units in cpu_units.items():
+        sl = slice(offsets[name], offsets[name] + len(units))
+        diff = card_units[name] != units
+        compared += len(units)
+        mismatched += int(diff.sum())
+        mismatched_outside += int((diff & ~within[sl]).sum())
 
-        files, codes = parse_manifest(d / "codes" / "train.txt")
-        ida_cfg = json.loads(IDA_CONFIG.read_text())
-        t0 = time.perf_counter()
-        cds = CodeDataset(files, codes, CodeDatasetConfig(
-            segment_size=ida_cfg["segment_size"],
-            embedding_dim=ida_cfg["embedding_dim"]), device="cuda")
-        batch = next(cds.batches(4, epoch=0, seed=SEED))
-        seconds["code_dataset"] = time.perf_counter() - t0
-        seg = ida_cfg["segment_size"]
-        want_shapes = {"audio": (4, 1, seg), "code": (4, seg // 320),
-                       "f0": (4, 1, seg // 80),
-                       "mel_loss": (4, 80, seg // 256),
-                       "emb": (4, ida_cfg["embedding_dim"]),
-                       "spkr": (4, 1)}
-        shapes = {k: tuple(v.shape) for k, v in batch.items()}
-        dtypes_ok = (batch["code"].dtype == np.int32
-                     and batch["spkr"].dtype == np.int32
-                     and all(batch[k].dtype == np.float32 for k in
-                             ("audio", "f0", "mel_loss", "emb")))
-        batch_finite = all(np.isfinite(v).all() for v in batch.values())
+    files, codes = parse_manifest(d / "codes" / "train.txt")
+    ida_cfg = json.loads(IDA_CONFIG.read_text())
+    t0 = time.perf_counter()
+    cds = CodeDataset(files, codes, CodeDatasetConfig(
+        segment_size=ida_cfg["segment_size"],
+        embedding_dim=ida_cfg["embedding_dim"]), device="cuda")
+    batch = next(cds.batches(4, epoch=0, seed=SEED))
+    seconds["code_dataset"] = time.perf_counter() - t0
+    seg = ida_cfg["segment_size"]
+    want_shapes = {"audio": (4, 1, seg), "code": (4, seg // 320),
+                   "f0": (4, 1, seg // 80),
+                   "mel_loss": (4, 80, seg // 256),
+                   "emb": (4, ida_cfg["embedding_dim"]),
+                   "spkr": (4, 1)}
+    shapes = {k: tuple(v.shape) for k, v in batch.items()}
+    dtypes_ok = (batch["code"].dtype == np.int32
+                 and batch["spkr"].dtype == np.int32
+                 and all(batch[k].dtype == np.float32 for k in
+                         ("audio", "f0", "mel_loss", "emb")))
+    batch_finite = all(np.isfinite(v).all() for v in batch.values())
 
-        t0 = time.perf_counter()
-        codegen = load_f0_quantizer(d / "f0vq", codegen_from_jax(
-            setup["cfg"], setup["params"], setup["vq"], device="cuda"))
-        trained_k_equal = bool(torch.equal(
-            codegen.fo_vqvae.vq.level_0.k, second.model.vq.level_0.k))
-        inp = IdaInpainter(setup["cfg"], None, None, HubertConfig.base(),
-                           setup["hp"], setup["centroids"],
-                           tap_layer=IDA_TAP, codegen=codegen,
-                           device="cuda")
-        seconds["load_inpainter"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codegen = load_f0_quantizer(d / "f0vq", codegen_from_jax(
+        setup["cfg"], setup["params"], setup["vq"], device="cuda"))
+    trained_k_equal = bool(torch.equal(
+        codegen.fo_vqvae.vq.level_0.k, second.model.vq.level_0.k))
+    inp = IdaInpainter(setup["cfg"], None, None, HubertConfig.base(),
+                       setup["hp"], setup["centroids"],
+                       tap_layer=IDA_TAP, codegen=codegen,
+                       device="cuda")
+    seconds["load_inpainter"] = time.perf_counter() - t0
     fused_resblock_step.launches = fused_resblock1.launches = 0
     t0 = time.perf_counter()
     out = inp(setup["utts"][0], IDA_MASK, emb=setup["emb"])
@@ -3526,6 +3549,498 @@ def phase_prep_and_train_f0vq_cli(torch, ida) -> dict:
     if not ok:
         raise AssertionError("prep / train_f0vq CLI check failed")
     return row
+
+
+DA_SEG = 8960         # configs/da_hubert100_lut.json's segment_size
+DA_B = 16             # its batch_size
+DA_SR = 16000
+DA_HOP = 320          # its code_hop_size: one unit per 320 samples
+# the joint regime's parity run: B = 2 items of DA_JOINT_T code samples
+# (256 encoder frames each: 512 rows), the two items equal, so that row i
+# and row i + 256 are twins; the CPU generator's seed whose first draw of
+# the codebook's 6 rows takes a twin pair, so that the first step restarts
+# the code that lost its twin (the other code of the pair takes ~85 other
+# rows and moves off the twins' frame: no tie with the restarted code)
+DA_JOINT_T = 1024
+DA_JOINT_SEED = 43
+
+
+def _da_config(h: dict, **gan):
+    """The DATrainConfig that the train_da CLI builds from the config dict
+    `h` (batched_disc, the frozen pitch quantizer, lambda_commit_code, the
+    loss mel from fmax_for_loss), `gan`'s settings over its GANConfig."""
+    from speech_inpainting_torch.models.codegen import CodeGeneratorConfig
+    from speech_inpainting_torch.ops.mel import MelConfig
+    from speech_inpainting_torch.train.da import DATrainConfig
+    from speech_inpainting_torch.train.gan import GANConfig
+    mel = MelConfig(sampling_rate=h.get("sampling_rate", 16000),
+                    n_fft=h.get("n_fft", 1024), num_mels=h.get("num_mels", 80),
+                    hop_size=h.get("hop_size", 256),
+                    win_size=h.get("win_size", 1024), fmin=h.get("fmin", 0),
+                    fmax=h.get("fmax_for_loss"))
+    gan = {"batched_disc": True, "frozen_g_paths": ("fo_vqvae",),
+           "lambda_commit": h.get("lambda_commit_code", 0) or 0, **gan}
+    return DATrainConfig(codegen=CodeGeneratorConfig.from_dict(h),
+                         gan=GANConfig(**gan), mel_loss=mel,
+                         segment_size=h.get("segment_size", DA_SEG))
+
+
+def _da_batch(rng, cfg, B, seg) -> dict:
+    """A CodeDataset-like batch of B crops of `seg` samples: synthetic 16 kHz
+    speech, random units, a z-normalised f0 series with every fifth frame
+    unvoiced (zero), random d-vectors of the config's width."""
+    from speech_inpainting_torch.testing import synthetic_utterance
+    audio = np.stack([synthetic_utterance(rng, seg / DA_SR + 0.01)[:seg]
+                      for _ in range(B)])[:, None]
+    f0 = rng.standard_normal((B, 1, seg // 80)).astype(np.float32)
+    f0[:, :, ::5] = 0.0
+    return {"code": rng.integers(0, cfg.num_embeddings, (B, seg // DA_HOP)
+                                 ).astype(np.int32),
+            "f0": f0, "emb": rng.standard_normal(
+                (B, cfg.embedding_dim)).astype(np.float32),
+            "audio": audio.astype(np.float32)}
+
+
+def _f64_batch(batch: dict) -> dict:
+    return {k: v.astype(np.float64) if v.dtype == np.float32 else v
+            for k, v in batch.items()}
+
+
+def _da_trees(torch, cfg, rng, periods=(2, 3, 5, 7, 11), scales=3
+              ) -> tuple:
+    """One seeded tree of the three modules: the CodeGenerator's params and
+    `vq` collection (testing.codegen_tree: a generator that carries the
+    signal, N(0, 1) tables and codebooks), the discriminators of `periods`
+    and `scales` at the port's init."""
+    from speech_inpainting_torch.convert.from_jax import (mpd_from_jax,
+                                                          mpd_tree,
+                                                          msd_from_jax,
+                                                          msd_tree,
+                                                          spectral_tree)
+    from speech_inpainting_torch.testing import codegen_tree
+    params, vq = codegen_tree(cfg, rng)
+    seed = int(rng.integers(1 << 30))
+    mpd = mpd_from_jax(periods=periods, device="cpu",
+                       generator=torch.Generator().manual_seed(seed))
+    msd = msd_from_jax(scales=scales, device="cpu",
+                       generator=torch.Generator().manual_seed(seed + 1))
+    return params, vq, mpd_tree(mpd), msd_tree(msd), spectral_tree(msd)
+
+
+def _da_state(torch, dcfg, trees, device, f64=False, seed=None,
+              periods=(2, 3, 5, 7, 11), scales=3):
+    """A GANTrainState on `device` over a WNCodeGenerator from the trees
+    (create_da_state's, with its candidates' generator, where `seed` is
+    given), the discriminators of `periods` and `scales`; f64 computes and
+    stores everything in float64."""
+    from speech_inpainting_torch.convert.from_jax import (mpd_from_jax,
+                                                          msd_from_jax,
+                                                          trainable_codegen)
+    from speech_inpainting_torch.train.da import create_da_state
+    from speech_inpainting_torch.train.gan import create_gan_state
+    params, vq, mp, mv, spec = trees
+    mods = (trainable_codegen(dcfg.codegen, params, vq, device=device),
+            mpd_from_jax(mp, periods, device=device),
+            msd_from_jax(mv, spec, scales, device=device))
+    if f64:
+        for m in mods:
+            m.double()
+            for c in m.modules():
+                if hasattr(c, "dtype"):
+                    c.dtype = torch.float64
+    if seed is not None:
+        return create_da_state(dcfg, *mods, seed=seed)
+    return create_gan_state(dcfg.gan, *mods)
+
+
+def _da_tensors(torch, state) -> dict:
+    """_gan_tensors and the generator's codebook buffers ("vq")."""
+    out = _gan_tensors(torch, state)
+    out.update({f"vq generator.{n}": b.double().cpu()
+                for n, b in state.generator.named_buffers()
+                if b.is_floating_point()})
+    return out
+
+
+def _da_snapshot(torch, state) -> dict:
+    """Copies, where they lie, of every parameter, AdamW moment and
+    codebook buffer of a state, and its optimizers' counts."""
+    out = {"counts": [s["step"] for o in (state.g_opt, state.d_opt)
+                      for s in o.state.values()]}
+    for mname in ("generator", "mpd", "msd"):
+        module = getattr(state, mname)
+        opt = state.g_opt if mname == "generator" else state.d_opt
+        for n, p in module.named_parameters():
+            out[f"param {mname}.{n}"] = p.detach().clone()
+            for key in ("exp_avg", "exp_avg_sq"):
+                if key in opt.state.get(p, {}):
+                    out[f"{key} {mname}.{n}"] = opt.state[p][key].clone()
+    out.update({f"vq {n}": b.clone()
+                for n, b in state.generator.named_buffers()})
+    return out
+
+
+def _same(torch, a: dict, b: dict) -> bool:
+    """Two `_da_snapshot`s bit-equal."""
+    return a.keys() == b.keys() and all(
+        a[k] == b[k] if k == "counts" else torch.equal(a[k], b[k])
+        for k in a)
+
+
+def phase_da_step_parity(torch) -> dict:
+    """The unit HiFi-GAN trainer's step on the card against the CPU, in
+    both regimes.
+
+    Decoder-only at full width: configs/da_hubert100_lut.json (V1 at 512
+    channels, 320× over five stages, the f0-VQ-VAE of configs/f0_vqvae.json
+    frozen), the full MPD and MSD, batched_disc, f32, B = 2 × 8960 samples,
+    one seeded tree (`_da_trees`): one step on the card, on the CPU and in
+    float64 on the CPU; losses rel 1e-5, every parameter, gradient, moment
+    and u/v by `_gan_gaps`; the pitch quantizer's parameters and buffers
+    bit-unchanged and out of the optimizer, the unit and pitch tables and
+    the generator moved.
+
+    Joint, at `content_vq`'s geometry (no full-width content-VQ config is
+    in the repository), B = 2 × DA_JOINT_T samples, skip_nonfinite, the
+    discriminators cut to one period and one scale (full width, as the
+    CPU tests cut them: the joint regime adds nothing to them): three
+    steps from an uninitialised codebook on the card, on the CPU and in
+    float64, each with the candidates of a CPU generator seeded
+    DA_JOINT_SEED; labels card vs CPU equal at every step, the first step
+    initialising the codebook and restarting a code, losses rel 1e-5,
+    every tensor and codebook buffer by `_gan_gaps`. Then on the card a NaN
+    batch (parameters, moments, codebook buffers and counts bit-equal, one
+    skip counted), and a g_/do_ round trip into a state seeded otherwise
+    (its step, codebook and candidates' generator restored)."""
+    import tempfile
+    from speech_inpainting_torch.train.da import make_da_step
+    from speech_inpainting_torch.utils.checkpoints import (
+        Checkpointer, restore_gan_checkpoint, save_gan_checkpoint)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 220)
+    dcfg = _da_config(json.loads(IDA_CONFIG.read_text()))
+    trees = _da_trees(torch, dcfg.codegen, rng)
+    batch = _da_batch(rng, dcfg.codegen, 2, DA_SEG)
+    step = make_da_step(dcfg)
+    card = _da_state(torch, dcfg, trees, "cuda")
+    frozen = {k: v.clone() for k, v in
+              card.generator.fo_vqvae.state_dict().items()}
+    start = {n: p.detach().clone()
+             for n, p in card.generator.named_parameters()}
+    card, mc = step(card, batch)
+    cpu, mp = step(_da_state(torch, dcfg, trees, "cpu"), batch)
+    ref, _ = step(_da_state(torch, dcfg, trees, "cpu", f64=True),
+                  _f64_batch(batch))
+    gaps = _gan_gaps(_gan_tensors(torch, card), _gan_tensors(torch, cpu),
+                     _gan_tensors(torch, ref))
+    del cpu, ref
+    rels = {k: _rel(float(mc[k]), float(mp[k]))
+            for k in ("loss_disc", "loss_gen_all", "mel_error")}
+    frozen_equal = all(torch.equal(v, frozen[k]) for k, v in
+                       card.generator.fo_vqvae.state_dict().items())
+    frozen_out = not any(p in card.g_opt.state
+                         for p in card.generator.fo_vqvae.parameters())
+    moved = {part: any(not torch.equal(p.detach(), start[n])
+                       for n, p in card.generator.named_parameters()
+                       if n.startswith(part + "."))
+             for part in ("emb_c", "emb_p", "generator")}
+    decoder = {"metrics_card": {k: float(v) for k, v in mc.items()},
+               "metrics_rel": rels, "card_vs_cpu": gaps,
+               "fo_vqvae_bit_unchanged": frozen_equal,
+               "fo_vqvae_out_of_optimizer": frozen_out, "moved": moved,
+               "seconds": time.perf_counter() - t0}
+    del card
+    ok = (max(rels.values()) <= 1e-5 and gaps["ok"] and frozen_equal
+          and frozen_out and all(moved.values()))
+
+    # ---- the joint regime
+    t1 = time.perf_counter()
+    jcfg = _da_config(dict(CONTENT_VQ, segment_size=DA_JOINT_T),
+                      skip_nonfinite=3)
+    cv = jcfg.codegen
+    cut = {"periods": (2,), "scales": 1}
+    params, vq, *discs = _da_trees(torch, cv, rng, **cut)
+    vq["code_vq"] = {"level_0": {
+        "k": np.zeros((cv.code_vq_bins, cv.code_vq_width), np.float32),
+        "k_sum": np.zeros((cv.code_vq_bins, cv.code_vq_width), np.float32),
+        "k_elem": np.zeros(cv.code_vq_bins, np.float32),
+        "initted": np.zeros((), bool)}}
+    jtrees = (params, vq, *discs)
+    from speech_inpainting_torch.testing import synthetic_utterance
+    jbatches = []
+    for _ in range(4):
+        code = 0.5 * synthetic_utterance(rng, DA_JOINT_T / DA_SR + 0.01)[
+            :DA_JOINT_T]
+        audio = np.stack([synthetic_utterance(rng, DA_JOINT_T / DA_SR
+                                              + 0.01)[:DA_JOINT_T]
+                          for _ in range(2)])
+        jbatches.append({"code": np.stack([code, code])[:, None].astype(
+            np.float32), "audio": audio[:, None].astype(np.float32)})
+    jbatches[3]["code"][0, 0, 100] = np.nan
+    jstep = make_da_step(jcfg)
+    runs = {}
+    for name, device, f64 in (("card", "cuda", False), ("cpu", "cpu", False),
+                              ("f64", "cpu", True)):
+        state = _da_state(torch, jcfg, jtrees, device, f64=f64,
+                          seed=DA_JOINT_SEED, **cut)
+        labels = []
+        state.generator.code_vq.level_0.register_forward_hook(
+            lambda m, a, out, into=labels: into.append(out[0].cpu()))
+        metrics, restarted = [], None
+        for i in range(3):
+            b = _f64_batch(jbatches[i]) if f64 else jbatches[i]
+            state, m = jstep(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                restarted = int((state.generator.code_vq.level_0.k_elem
+                                 < 1.0).sum())
+        runs[name] = dict(state=state, labels=labels, metrics=metrics,
+                          restarted=restarted)
+    torch.cuda.synchronize()
+    jgaps = _gan_gaps(*(_da_tensors(torch, runs[k]["state"])
+                        for k in ("card", "cpu", "f64")))
+    labels_equal = [bool(torch.equal(a, b)) for a, b in
+                    zip(runs["card"]["labels"], runs["cpu"]["labels"])]
+    jrel = max(_rel(a[k], b[k]) for a, b in zip(runs["card"]["metrics"],
+                                                runs["cpu"]["metrics"])
+               for k in ("loss_disc", "loss_gen_all", "mel_error", "commit"))
+    card = runs["card"]["state"]
+    del runs["cpu"]["state"], runs["f64"]["state"]
+    # a NaN batch under skip_nonfinite, on the card
+    before = _da_snapshot(torch, card)
+    card, mb = jstep(card, jbatches[3])
+    nan_equal = _same(torch, before, _da_snapshot(torch, card))
+    skips = (int(mb["nonfinite_skips"]), card.g_guard.notfinite_count,
+             card.d_guard.notfinite_count)
+    # the candidates' generator through g_/do_
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Checkpointer(tmp)
+        save_gan_checkpoint(ck, card, card.step, wait=True)
+        other = _da_state(torch, jcfg, jtrees, "cuda",
+                          seed=DA_JOINT_SEED + 1, **cut)
+        other, had_g, had_do = restore_gan_checkpoint(ck, other)
+    restored = (had_g and had_do and other.step == card.step
+                and torch.equal(other.rng.get_state(), card.rng.get_state())
+                and _same(torch, _da_snapshot(torch, other),
+                          _da_snapshot(torch, card)))
+    del card, other
+    joint = {"geometry": "content_vq's, B = 2 x %d code samples, the two "
+             "items equal; MPD period 2, one MSD scale" % DA_JOINT_T,
+             "labels_equal_each_step": labels_equal,
+             "codes_restarted_on_first_step": runs["card"]["restarted"],
+             "loss_gen_all_card": [m["loss_gen_all"]
+                                   for m in runs["card"]["metrics"]],
+             "commit_card": [m["commit"] for m in runs["card"]["metrics"]],
+             "losses_max_rel": jrel, "card_vs_cpu": jgaps,
+             "nan_batch_bit_equal": nan_equal, "skips": skips,
+             "checkpoint_restores_step_codebook_rng": restored,
+             "seconds": time.perf_counter() - t1}
+    ok &= (len(labels_equal) == 3 and all(labels_equal)
+           and runs["card"]["restarted"] > 0 and jrel <= 1e-5
+           and jgaps["ok"] and nan_equal and skips == (1, 1, 1)
+           and restored)
+    row = {"phase": "da_step_parity", "config": "da_hubert100_lut.json",
+           "B": 2, "samples": DA_SEG, "dtype": "float32",
+           "decoder_only": decoder, "joint": joint,
+           "seconds": time.perf_counter() - t0, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("DA step parity check failed")
+    return row
+
+
+def phase_da_train(torch) -> dict:
+    """The decoder-only DA trainer at full width: configs/
+    da_hubert100_lut.json (V1 at 512 channels, 320× upsampling, the full
+    MPD and MSD), B = 16 × 8960 samples (its batch_size and segment_size:
+    8.96 s of audio a step), one fixed `_da_batch`, the CLI's init
+    (generator from seed 1234, discriminators from 1 and 2), a pitch
+    quantizer of configs/f0_vqvae.json's width loaded and frozen. Eight f32
+    steps, then eight with disc_bf16 from the same init: ms per step by
+    CUDA events (the first apart; median, min and max of the other seven),
+    trained audio-s per s, the host's time in each step call, peak memory,
+    the bound (`gan_step_bound_ms` at the generator's 28 input frames);
+    one more f32 step under torch.profiler (busy share). Gates: every loss
+    finite, mel_error over
+    each run's last three steps below its first step's, the pitch quantizer
+    bit-unchanged."""
+    from speech_inpainting_torch.convert.from_jax import (trainable_codegen,
+                                                          trainable_fo_vqvae)
+    from speech_inpainting_torch.testing import fo_vqvae_tree
+    from speech_inpainting_torch.train.da import make_da_step
+    from speech_inpainting_torch.train.gan import (create_gan_state,
+                                                   default_discriminators)
+    t0 = time.perf_counter()
+    h = json.loads(IDA_CONFIG.read_text())
+    rng = np.random.default_rng(SEED + 230)
+    f0cfg = _da_config(h).codegen.f0_quantizer
+    pitch = trainable_fo_vqvae(f0cfg, *fo_vqvae_tree(f0cfg, rng),
+                               device="cpu").state_dict()
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             _da_batch(rng, _da_config(h).codegen, DA_B, DA_SEG).items()}
+    audio_s = DA_B * DA_SEG / DA_SR
+    rows, ok = {}, True
+    for name, bf16 in (("f32", False), ("bf16_disc", True)):
+        dcfg = _da_config(h, disc_bf16=bf16)
+        torch.cuda.reset_peak_memory_stats()
+        gen = trainable_codegen(dcfg.codegen, seed=1234, device="cuda")
+        gen.fo_vqvae.load_state_dict(pitch)
+        state = create_gan_state(dcfg.gan, gen,
+                                 *default_discriminators(dcfg.gan, "cuda"))
+        n_params = sum(p.numel() for p in
+                       state.g_parameters() + state.d_parameters())
+        step = make_da_step(dcfg)
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) for _ in range(8)]
+        metrics, host = [], []
+        t1 = time.perf_counter()
+        for a, b in events:
+            a.record()
+            t2 = time.perf_counter()
+            state, m = step(state, batch)
+            host.append((time.perf_counter() - t2) * 1e3)
+            b.record()
+            metrics.append(m)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        ms = [a.elapsed_time(b) for a, b in events]
+        metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+        med = float(np.median(ms[1:]))
+        mel = [m["mel_error"] for m in metrics]
+        finite = all(np.isfinite(v) for m in metrics for v in m.values())
+        frozen = all(torch.equal(v.cpu(), pitch[k]) for k, v in
+                     state.generator.fo_vqvae.state_dict().items())
+        ok &= finite and max(mel[-3:]) < mel[0] and frozen
+        rows[name] = {
+            "first_step_ms": ms[0], "ms_per_step_median": med,
+            "ms_per_step_min": min(ms[1:]), "ms_per_step_max": max(ms[1:]),
+            "ms_per_step": ms, "wall_s_8_steps": wall,
+            # the host's time in each step call (it returns once the step
+            # is enqueued, bar the guard's and the metrics' reads): near
+            # the step's own time, the host paces the step
+            "host_ms_per_step_median": float(np.median(host[1:])),
+            "audio_seconds_per_second": audio_s / (med / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "mel_error": mel, "loss_disc": [m["loss_disc"] for m in metrics],
+            "loss_gen_all": [m["loss_gen_all"] for m in metrics],
+            "fo_vqvae_bit_unchanged": frozen,
+            **gan_step_bound_ms(dcfg.codegen.hifigan, DA_B, DA_SEG, n_params,
+                                bf16, frames=DA_SEG // DA_HOP)}
+        if name == "f32":
+            rows["f32_profile"] = _profile_step(torch, step, state, batch)
+        del state, step, gen
+    row = {"phase": "da_train", "config": "da_hubert100_lut.json",
+           "regime": "decoder-only", "B": DA_B, "samples": DA_SEG,
+           "audio_seconds_per_step": audio_s, **rows,
+           "seconds": time.perf_counter() - t0, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("DA training run check failed")
+    return row
+
+
+def phase_train_da_cli(torch, ida, d: Path) -> dict:
+    """`train_da.main` on the card on what `prep_and_train_f0vq_cli` left
+    in `d`: its units manifest (codes/train.txt, 18 utterances: one B = 16
+    step an epoch), its f0 statistics (the config's f0_stats) and its
+    train_f0vq directory (--f0-quantizer), configs/da_hubert100_lut.json,
+    a validation manifest of four of the utterances, --validation-interval
+    1, --epochs 1; twice, the second run resuming 1 → 2. Each run's sweep
+    folds the trained generator (K2 launches counted). Then one I_da
+    utterance (`ida_main`'s 4 s input, HuBERT and centroids) through
+    `IdaInpainter` with the trained generator folded: K2 launches, kernel
+    path vs plain path; and K2 against its plain version at the sweep's
+    B and step shapes, which no earlier check holds (`ida_kernel_check`
+    holds B = 1 at the 4 s utterance's lengths, `gan_valid_kernel_check`
+    V1's). Gates: the checkpoints, the resume, the launches, the pitch
+    quantizer equal to the directory's, the waveforms finite."""
+    from speech_inpainting_torch.cli import train_da
+    from speech_inpainting_torch.convert.ida_torch import (
+        load_f0vq_training_checkpoint)
+    from speech_inpainting_torch.data.code_dataset import mel_stats_embedder
+    from speech_inpainting_torch.infer.ida_inpaint import IdaInpainter
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    from speech_inpainting_torch.ops.resblock import (fused_resblock1,
+                                                      fused_resblock_step)
+    setup = ida["setup"]
+    t0 = time.perf_counter()
+    h = json.loads(IDA_CONFIG.read_text())
+    h["f0_stats"] = str(d / "f0_stats.json")
+    (d / "da.json").write_text(json.dumps(h))
+    lines = (d / "codes" / "train.txt").read_text().splitlines()
+    (d / "da_valid.txt").write_text("\n".join(lines[-4:]) + "\n")
+    cmd = [str(a) for a in (
+        "--config", d / "da.json", "--train-manifest", d / "codes" /
+        "train.txt", "--valid-manifest", d / "da_valid.txt",
+        "--validation-interval", 1, "--f0-quantizer", d / "f0vq",
+        "--checkpoint-path", d / "da_ckpt", "--epochs", 1, "--cache-dir",
+        d / "da_cache", "--device", "cuda")]
+    runs = []
+    for _ in range(2):
+        fused_resblock_step.launches = 0
+        t1 = time.perf_counter()
+        state = train_da.main(cmd)
+        torch.cuda.synchronize()
+        runs.append({"seconds": time.perf_counter() - t1,
+                     "end_step": state.step,
+                     "validation_k2_launches": fused_resblock_step.launches,
+                     "checkpoints": sorted(
+                         p.name for p in (d / "da_ckpt").iterdir())})
+    gen = state.generator
+    want = load_f0vq_training_checkpoint(d / "f0vq", gen.cfg.f0_quantizer,
+                                         device="cuda").state_dict()
+    pitch_equal = all(torch.equal(v, want[k]) for k, v in
+                      gen.fo_vqvae.state_dict().items())
+    t1 = time.perf_counter()
+    inp = IdaInpainter(gen.cfg, None, None, HubertConfig.base(),
+                       setup["hp"], setup["centroids"], tap_layer=IDA_TAP,
+                       codegen=gen.fold(), device="cuda")
+    emb = mel_stats_embedder(gen.cfg.hifigan.in_dim - 2 * gen.cfg.
+                             embedding_dim, device="cuda")(
+        setup["utts"][0], DA_SR)
+    fused_resblock_step.launches = fused_resblock1.launches = 0
+    out = inp(setup["utts"][0], IDA_MASK, emb=emb)
+    torch.cuda.synchronize()
+    utterance_s = time.perf_counter() - t1
+    launches, k1 = fused_resblock_step.launches, fused_resblock1.launches
+    inp.codegen.generator.use_kernel = False
+    plain = inp(setup["utts"][0], IDA_MASK, emb=emb)
+    diff = max((out[k] - plain[k]).abs().max().item()
+               for k in ("audio_gen", "audio_inpainted"))
+    finite = all(bool(torch.isfinite(v.float()).all())
+                 for k, v in out.items() if k != "rtf")
+    n_valid = 4
+    cfg = gen.cfg.hifigan
+    stage_T, t = {}, DA_SEG // DA_HOP
+    for i, u in enumerate(cfg.upsample_rates):
+        t *= u
+        stage_T[cfg.upsample_initial_channel // 2 ** (i + 1)] = t
+    path = {"T": stage_T, "kernel_sizes": cfg.resblock_kernel_sizes,
+            "dilations": cfg.resblock_dilation_sizes}
+    per_call = 2 * len(cfg.upsample_rates) * sum(
+        len(r) for r in cfg.resblock_dilation_sizes)
+    del state, gen, inp
+    ok = (runs[0]["end_step"] == 1 and runs[1]["end_step"] == 2
+          and runs[0]["checkpoints"] == ["do_00000001", "g_00000001"]
+          and runs[1]["checkpoints"] == ["do_00000001", "do_00000002",
+                                         "g_00000001", "g_00000002"]
+          and all(r["validation_k2_launches"] == per_call for r in runs)
+          and pitch_equal and launches == 2 * per_call and k1 == 0
+          and diff <= MAIN_ATOL and finite)
+    row = {"phase": "train_da_cli", "train_utterances": len(lines),
+           "valid_utterances": n_valid, "runs": runs,
+           "pitch_quantizer_from_train_f0vq": pitch_equal,
+           "generator_in_dim": cfg.in_dim,
+           "k2_launches": launches, "k1_launches": k1,
+           "kernel_vs_plain_max_abs": diff, "tolerance": MAIN_ATOL,
+           "utterance_seconds": utterance_s, "finite": finite,
+           "seconds": time.perf_counter() - t0, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("train_da CLI check failed")
+    errs = phase_ida_kernel_check(torch, path, B=n_valid,
+                                  name="da_valid_kernel_check")
+    return {**row, "kernel_check": errs, "validation_path": path}
 
 
 def control_unpinned(torch) -> int:
@@ -3601,7 +4116,12 @@ def main() -> int:
     phase_f0vq_step_parity(torch, f0ds)
     phase_f0vq_train(torch, f0ds, f0_corpus_s)
     del f0ds
-    f0cli = phase_prep_and_train_f0vq_cli(torch, ida)
+    phase_da_step_parity(torch)
+    phase_da_train(torch)
+    import tempfile
+    with tempfile.TemporaryDirectory() as prep_dir:
+        f0cli = phase_prep_and_train_f0vq_cli(torch, ida, Path(prep_dir))
+        dcli = phase_train_da_cli(torch, ida, Path(prep_dir))
     taken = {"I_ea": _plan_tiles(4, path["T"], path["kernel_sizes"],
                                  path["dilations"]),
              "I_da": _plan_tiles(1, ida["T"], ida["kernel_sizes"],
@@ -3612,7 +4132,11 @@ def main() -> int:
              "train_hifigan_validation": _plan_tiles(
                  GAN_B, gcli["validation_sweep"]["path"]["T"],
                  gcli["validation_sweep"]["path"]["kernel_sizes"],
-                 gcli["validation_sweep"]["path"]["dilations"])}
+                 gcli["validation_sweep"]["path"]["dilations"]),
+             "train_da_validation": _plan_tiles(
+                 4, dcli["validation_path"]["T"],
+                 dcli["validation_path"]["kernel_sizes"],
+                 dcli["validation_path"]["dilations"])}
     emit({"phase": "spills", "instantiations": [
         {**r, "taken_by": [name for name, tiles in taken.items()
                            if (r["co_tile"], r["t_tile"], r["K"]) in tiles]}
@@ -3667,8 +4191,11 @@ def main() -> int:
         # utterance per mask, one V1 forward of the vocode CLI (wav2wav,
         # --quantize-mel and mel2wav alike), one content-VQ forward, the GAN
         # trainer's validation sweep (one B = 16 forward of the folded
-        # generator), one vocode forward from the g_ it wrote, and one I_da
-        # utterance whose pitch quantizer train_f0vq trained
+        # generator), one vocode forward from the g_ it wrote, one I_da
+        # utterance whose pitch quantizer train_f0vq trained, the unit
+        # HiFi-GAN trainer's validation sweep (one B = 4 forward of the
+        # folded CodeGenerator) and one I_da utterance through the
+        # CodeGenerator it trained
         "launches_by_path": {
             "I_da_utterance": ida["launches"],
             "inpaint_da_cli_per_utterance_per_mask":
@@ -3680,17 +4207,23 @@ def main() -> int:
             "vocode_from_trained_g_per_forward":
                 gcli["vocode_k2_launches_per_forward"],
             "I_da_utterance_with_trained_pitch_quantizer":
-                f0cli["k2_launches"]},
+                f0cli["k2_launches"],
+            "train_da_validation_sweep":
+                dcli["runs"][0]["validation_k2_launches"],
+            "I_da_utterance_with_trained_codegen": dcli["k2_launches"]},
         # the worst over the I_da generator's 45 step shapes, V1's 36 at
         # the vocode CLI's lengths and 36 at the GAN trainer's validation
-        # sweep (B = 16), and the edge shapes
+        # sweep (B = 16), the I_da generator's 45 at the DA trainer's sweep
+        # (B = 4, 8960 samples), and the edge shapes
         "max_abs_err": max(ida_errs["f32_max_abs_err"],
                            voc["kernel_check"]["f32_max_abs_err"],
                            gcli["kernel_check"]["f32_max_abs_err"],
+                           dcli["kernel_check"]["f32_max_abs_err"],
                            edge["K2"]["f32_max_abs_err"]),
         "bf16_rel_err": max(ida_errs["bf16_rel_err"],
                             voc["kernel_check"]["bf16_rel_err"],
                             gcli["kernel_check"]["bf16_rel_err"],
+                            dcli["kernel_check"]["bf16_rel_err"],
                             edge["K2"]["bf16_rel_err"]),
         "ms": t2["ms"], "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
         "bound_by": t2["bound_by"], "library_ms": t2["library_ms"],

@@ -23,6 +23,9 @@ build. For the GAN trainer, `trainable_generator`, `mpd_from_jax` and
 back. Those modules carry the reference checkpoints' names, so each tree
 maps to and from a reference state dict (`reference_*_tree`,
 `_state_dict_of`), which convert/hifigan_torch.py's loaders read too.
+For the unit HiFi-GAN trainer, `trainable_codegen` builds a
+`WNCodeGenerator` from a JAX CodeGenerator's `params` and `vq` collection
+(or its fresh init), and `codegen_tree` reads one back into those trees.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..models.codegen import (CodeGenerator, CodeGeneratorConfig, FoVQVAE,
-                              FoVQVAEConfig)
+                              FoVQVAEConfig, WNCodeGenerator)
 from ..models.hifigan import (Generator, HiFiGANConfig,
                               MultiPeriodDiscriminator,
                               MultiScaleDiscriminator, WNGenerator)
@@ -565,3 +568,80 @@ def msd_tree(module: MultiScaleDiscriminator, of=lambda p: p) -> dict:
 def spectral_tree(module: MultiScaleDiscriminator) -> dict:
     """The `spectral` collection: scale 0's stored u and v."""
     return reference_msd_tree(module.state_dict())[1]
+
+
+# ------------------------------------ the unit HiFi-GAN trainer's module
+
+@torch.no_grad()
+def trainable_codegen(cfg: CodeGeneratorConfig, params: dict | None = None,
+                      vq_tree: dict | None = None, *, seed: int = 0,
+                      device=None) -> WNCodeGenerator:
+    """The unit HiFi-GAN trainer's `WNCodeGenerator` on `device`, as
+    `trainable_generator` and `trainable_fo_vqvae` build theirs: a JAX
+    CodeGenerator's `params` (emb_c or code_encoder, emb_p, emb_s,
+    fo_vqvae, generator) and `vq` collection (code_vq/level_0,
+    fo_vqvae/vq/level_{i}: k and, where the collection has them, k_sum,
+    k_elem, initted) where given, else the fresh init drawn from `seed`
+    (models/codegen.py); the pitch quantizer frozen either way."""
+    device = resolve_device(device)
+    model = WNCodeGenerator(cfg, torch.Generator().manual_seed(seed))
+    if params is not None:
+        _load_plain(model, {k: v for k, v in params.items()
+                            if k != "generator"})
+        model.generator.load_state_dict(
+            _state_dict_of(model.generator, params["generator"]))
+    if vq_tree is not None:
+        if cfg.content_vq:
+            _load_codebooks(model.code_vq, vq_tree["code_vq"])
+        if cfg.use_f0:
+            _load_codebooks(model.fo_vqvae.vq, vq_tree["fo_vqvae"]["vq"])
+    return model.to(device)
+
+
+def _plain_tree(module: nn.Module, of) -> dict:
+    """`module`'s torch-layout convs ({w, b}) and tables ({weight}) as a
+    tree under their module names, of `of(p)` for each parameter p; a leaf
+    whose `of` is None is left out."""
+    tree = {}
+    for name, m in module.named_modules():
+        if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
+            leaf = {"w": of(m.weight), "b": of(m.bias)}
+        elif isinstance(m, nn.Embedding):
+            leaf = {"weight": of(m.weight)}
+        else:
+            continue
+        leaf = {k: _np_copy(v) for k, v in leaf.items() if v is not None}
+        if leaf and name:
+            _put(tree, tuple(name.split(".")), leaf)
+        elif leaf:                          # `module` is the leaf itself
+            tree.update(leaf)
+    return tree
+
+
+def _codebook_tree(bottleneck: nn.Module) -> dict:
+    return {name: {k: np.array(b.detach().cpu().numpy(), copy=True)
+                   for k, b in block.named_buffers()}
+            for name, block in bottleneck.named_children()}
+
+
+def codegen_tree(module: WNCodeGenerator, of=lambda p: p) -> tuple:
+    """(params, vq) of `module` as the JAX CodeGenerator's trees, numpy:
+    the parameters, or `of(p)` for each parameter p (its `.grad`, an
+    optimizer's moment; None leaves a leaf out, as for the frozen pitch
+    quantizer's moments), and the `vq` collection of its codebook buffers.
+    The pitch quantizer appears with its encoder only: the CodeGenerator
+    never calls its decoder, so JAX's `init` makes none."""
+    params = {name: _plain_tree(child, of)
+              for name, child in module.named_children()
+              if name not in ("generator", "fo_vqvae", "code_vq")}
+    vq = {}
+    if module.cfg.content_vq:
+        vq["code_vq"] = _codebook_tree(module.code_vq)
+    if module.cfg.use_f0:
+        enc = _plain_tree(module.fo_vqvae.encoder, of)
+        if enc:
+            params["fo_vqvae"] = {"encoder": enc}
+        vq["fo_vqvae"] = {"vq": _codebook_tree(module.fo_vqvae.vq)}
+    params = {k: v for k, v in params.items() if v}
+    params["generator"] = generator_tree(module.generator, of)
+    return params, vq

@@ -10,8 +10,8 @@ Counterpart of speech_inpainting_tpu/losses.py:
     against the uncentred centroids, the summed cross-entropy, each with
     its predicted labels, and the cosine between predicted and target
     centroids (the cos-sim accuracy metric). Argmax and argmin take the
-    first extreme, as jnp's do.
-`commit_loss` (the VQ-VAE commitment) waits for I_da training.
+    first extreme, as jnp's do;
+  - `commit_loss`, the VQ-VAE commitment ‖sg(x_q) − x‖² / N.
 """
 from __future__ import annotations
 
@@ -119,3 +119,9 @@ class CentroidLosses:
         a = self.C_centered[pred_labels.reshape(-1)]
         b = self.C_centered[labels.reshape(-1)]
         return self._cos(a, b)
+
+
+def commit_loss(x: torch.Tensor, x_q: torch.Tensor) -> torch.Tensor:
+    """‖sg(x_q) − x‖² / x.numel() (the reference vq.py's commit term): its
+    gradient reaches x alone."""
+    return torch.sum((x_q.detach() - x) ** 2) / x.numel()

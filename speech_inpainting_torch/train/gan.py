@@ -21,6 +21,20 @@ moments, nor either count); the step reports the larger of the two
 consecutive-skip counters. The MSD's spectral-norm u/v advance four times a
 step (real and fake in each phase), guarded or not: the power iteration
 reads only the weights. The step runs under `device.full_f32()`.
+
+`frozen_g_paths` names top-level submodules of the generator (the I_da
+trainer's frozen pitch quantizer, "fo_vqvae") whose parameters stay out of
+the generator's optimizer and out of autograd; JAX gives them
+`optax.set_to_zero`, and their gradients are exactly zero behind its
+stop_gradient, so its guard reads nothing else either. `stateful_vq` is
+the joint enc-VQ-dec regime: the generator's EMA codebooks (its buffers)
+update inside its one forward, from restart candidates drawn from the
+state's CPU `torch.Generator` (`GANTrainState.rng`; JAX splits a PRNG key
+per step, which torch cannot replay), and the step adds λ·commit. The
+update writes only the buffers, which no saved tensor of the graph
+aliases, so the D step between that forward and the G backward leaves the
+backward intact. With `skip_nonfinite` the codebooks are gated on their
+own finiteness (`guard.tree_if_finite`), as JAX gates `state.vq`.
 """
 from __future__ import annotations
 
@@ -33,14 +47,10 @@ from torch import nn
 
 from .. import losses
 from ..device import full_f32
-from ..models.hifigan import (Generator, MultiPeriodDiscriminator,
-                              MultiScaleDiscriminator)
+from ..models.hifigan import MultiPeriodDiscriminator, MultiScaleDiscriminator
 from ..models.hifigan_istft import ISTFTGenerator
-from .guard import SkipNonFinite
+from .guard import SkipNonFinite, tree_if_finite
 from .optim import AdamW, exponential_decay
-
-_ITEM_10 = ("ROADMAP Queue 1 item 10 (b), the unit-HiFi-GAN trainer: the "
-            "next slice of I_da training")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +63,8 @@ class GANConfig:
     steps_per_epoch: int = 1000
     mel_weight: float = 45.0
     lambda_commit: float = 0.0       # I_da lambda_commit_code
-    frozen_g_paths: tuple = ()       # not ported: ROADMAP item 10
+    frozen_g_paths: tuple = ()       # generator submodules kept out of
+                                     # its optimizer (I_da: "fo_vqvae")
     batched_disc: bool = False       # (real, fake) as one 2B forward through
                                      # each weight-normed discriminator
     folded_mpd: bool = False         # TPU layout knob: not ported
@@ -66,8 +77,10 @@ class GANConfig:
 
 @dataclasses.dataclass
 class GANTrainState:
-    """What a step changes: its count, the three modules (the MSD's u/v in
-    its buffers), both optimizers and, with skip_nonfinite, both guards."""
+    """What a step changes: its count, the three modules (the MSD's u/v and
+    any EMA codebooks of the generator in their buffers), both optimizers,
+    with skip_nonfinite both guards, and with stateful_vq the restart
+    candidates' CPU generator `rng` (JAX's `state.rng`)."""
     step: int
     generator: nn.Module
     mpd: MultiPeriodDiscriminator
@@ -76,9 +89,14 @@ class GANTrainState:
     d_opt: AdamW
     g_guard: Optional[SkipNonFinite] = None
     d_guard: Optional[SkipNonFinite] = None
+    rng: Optional[torch.Generator] = None
 
     def d_parameters(self) -> list:
         return [*self.mpd.parameters(), *self.msd.parameters()]
+
+    def g_parameters(self) -> list:
+        """The generator's trained parameters: those of its optimizer."""
+        return [p for g in self.g_opt.param_groups for p in g["params"]]
 
     def state_dict(self) -> dict:
         sd = {"step": self.step, "generator": self.generator.state_dict(),
@@ -88,6 +106,8 @@ class GANTrainState:
         if self.g_guard is not None:
             sd["guards"] = {"g": self.g_guard.state_dict(),
                             "d": self.d_guard.state_dict()}
+        if self.rng is not None:
+            sd["rng"] = self.rng.get_state()
         return sd
 
     def load_state_dict(self, sd: dict) -> None:
@@ -100,15 +120,11 @@ class GANTrainState:
         if self.g_guard is not None:
             self.g_guard.load_state_dict(sd["guards"]["g"])
             self.d_guard.load_state_dict(sd["guards"]["d"])
+        if self.rng is not None:
+            self.rng.set_state(sd["rng"])
 
 
-def _check(cfg: GANConfig, stateful_vq: bool = False) -> None:
-    if stateful_vq:
-        raise NotImplementedError(
-            f"stateful_vq (the joint enc-VQ-dec regime) waits for {_ITEM_10}")
-    if cfg.frozen_g_paths:
-        raise NotImplementedError(
-            f"frozen_g_paths waits for {_ITEM_10}")
+def _check(cfg: GANConfig) -> None:
     if cfg.folded_mpd:
         raise NotImplementedError(
             "folded_mpd is a TPU layout knob that is not ported (ROADMAP "
@@ -155,22 +171,33 @@ def _check_modules(cfg: GANConfig, generator: nn.Module,
 
 def create_gan_state(cfg: GANConfig, generator: nn.Module,
                      mpd: MultiPeriodDiscriminator,
-                     msd: MultiScaleDiscriminator) -> GANTrainState:
+                     msd: MultiScaleDiscriminator, *,
+                     rng: Optional[torch.Generator] = None) -> GANTrainState:
     """A step-0 state over the three modules: one AdamW for the generator,
     one for both discriminators (as the JAX package's {"mpd", "msd"}
     tree). The step trains these modules, whatever their periods and
     scales (the JAX package's mpd/msd overrides); the config's disc_bf16
     must agree with the type they compute in, and an iSTFT generator is
-    refused."""
+    refused. The generator's submodules named in cfg.frozen_g_paths are
+    frozen (requires_grad off) and left out of its optimizer; a name the
+    generator lacks freezes nothing, as in the JAX package (the joint
+    regime's generator has no "fo_vqvae"). `rng`, a CPU
+    torch.Generator, draws a stateful_vq step's restart candidates
+    (train/da.py:create_da_state seeds it)."""
     _check(cfg)
     _check_modules(cfg, generator, mpd, msd)
+    for name, child in generator.named_children():
+        if name in cfg.frozen_g_paths:
+            child.requires_grad_(False)
+    trained = [p for n, p in generator.named_parameters()
+               if n.split(".")[0] not in cfg.frozen_g_paths]
     guard = (lambda: SkipNonFinite()) if cfg.skip_nonfinite else (
         lambda: None)
     return GANTrainState(
         step=0, generator=generator, mpd=mpd, msd=msd,
-        g_opt=_adamw(cfg, list(generator.parameters())),
+        g_opt=_adamw(cfg, trained),
         d_opt=_adamw(cfg, [*mpd.parameters(), *msd.parameters()]),
-        g_guard=guard(), d_guard=guard())
+        g_guard=guard(), d_guard=guard(), rng=rng)
 
 
 @contextlib.contextmanager
@@ -203,7 +230,11 @@ def make_gan_step(generator_fwd: Callable, mel_fn: Callable, cfg: GANConfig,
     """step(state, batch) → (state, metrics), `state` updated in place.
 
     generator_fwd(generator, batch) → ŷ (B, 1, T), or (ŷ, commit) where
-    lambda_commit > 0. mel_fn(wav (B, T)) → the loss mel. batch holds
+    lambda_commit > 0; with stateful_vq generator_fwd(generator, batch,
+    rng) → (ŷ, commit), the generator's codebooks updated inside it from
+    candidates drawn from `rng` (the state's; JAX's generator_fwd(g_params,
+    vq, rng, batch) → (ŷ, commit, new_vq), whose new_vq is the module's
+    buffers here). mel_fn(wav (B, T)) → the loss mel. batch holds
     'audio' (B, 1, T), the ground truth, and 'mel_loss' (B, n_mels, F)
     where the loss mel is precomputed (else mel_fn(audio)); numpy arrays or
     tensors, moved to the generator's device. The state's modules run (a
@@ -212,21 +243,34 @@ def make_gan_step(generator_fwd: Callable, mel_fn: Callable, cfg: GANConfig,
     Metrics are 0-dim tensors on the device (reading one waits for it), in
     the order of the JAX step's (jitted, so sorted) metrics; with the guard
     'nonfinite_skips' is an int."""
-    _check(cfg, stateful_vq)
-    has_commit = cfg.lambda_commit > 0
+    _check(cfg)
+    has_commit = cfg.lambda_commit > 0 or stateful_vq
 
     def step(state: GANTrainState, batch):
         device = next(state.generator.parameters()).device
         batch = _on(batch, device)
         y = batch["audio"]
         d_params = state.d_parameters()
+        vq_before = None
+        if stateful_vq:
+            if state.rng is None:
+                raise ValueError("stateful_vq draws restart candidates from "
+                                 "state.rng: build the state with "
+                                 "train/da.py:create_da_state")
+            vq = list(state.generator.buffers())
+            vq_before = ([b.clone() for b in vq] if cfg.skip_nonfinite
+                         else None)
         with full_f32():
             with torch.no_grad():
                 mel_gt = (batch["mel_loss"] if "mel_loss" in batch
                           else mel_fn(y[:, 0]))
             # ---- 1. one generator forward, its graph kept -------------
-            out = generator_fwd(state.generator, batch)
-            y_hat, commit = out if has_commit else (out, None)
+            if stateful_vq:
+                y_hat, commit = generator_fwd(state.generator, batch,
+                                              state.rng)
+            else:
+                out = generator_fwd(state.generator, batch)
+                y_hat, commit = out if has_commit else (out, None)
 
             # ---- 2. the discriminators on (y, ŷ detached) -------------
             y_hat_d = y_hat.detach()
@@ -254,8 +298,11 @@ def make_gan_step(generator_fwd: Callable, mel_fn: Callable, cfg: GANConfig,
                     total = total + cfg.lambda_commit * commit
                 state.g_opt.zero_grad(set_to_none=True)
                 total.backward()
-            _update(state.g_guard, state.g_opt,
-                    list(state.generator.parameters()))
+            _update(state.g_guard, state.g_opt, state.g_parameters())
+        if vq_before is not None:
+            # the codebooks updated in the forward, out of the optimizers'
+            # sight: kept only where every new value is finite
+            tree_if_finite(vq, vq_before)
         metrics = dict(fm_f=fm_f.detach(), fm_s=fm_s.detach(),
                        gen_f=gen_f.detach(), gen_s=gen_s.detach(),
                        loss_disc=d_loss.detach(),
@@ -282,7 +329,7 @@ def make_gan_eval(generator_fwd: Callable, mel_fn: Callable) -> Callable:
     @torch.no_grad()
     def eval_fn(generator: Any, batch) -> dict:
         if hasattr(generator, "fold"):
-            generator = generator.fold(cls=Generator)
+            generator = generator.fold()
         device = next(generator.parameters()).device
         batch = _on(batch, device)
         with full_f32():

@@ -5,7 +5,9 @@ Counterpart of speech_inpainting_tpu/train/guard.py's `all_finite` and
 parameters, both AdamW moments and its step count stay as they were) and
 counts the consecutive and the total skips, which the training loop reads
 to abort loudly once the streak passes its budget (`train/run.py`,
-`RunConfig.abort_nonfinite`). `tree_if_finite` waits for I_da training.
+`RunConfig.abort_nonfinite`). `tree_if_finite` gates state that updates
+outside an optimizer (the EMA codebooks, which update inside the
+generator's forward) on that state's own finiteness.
 """
 from __future__ import annotations
 
@@ -51,3 +53,19 @@ class SkipNonFinite:
     def load_state_dict(self, sd: dict) -> None:
         self.notfinite_count = int(sd["notfinite_count"])
         self.total_notfinite = int(sd["total_notfinite"])
+
+
+@torch.no_grad()
+def tree_if_finite(new: Sequence[torch.Tensor],
+                   old: Sequence[torch.Tensor]) -> None:
+    """JAX's `tree_if_finite(new, old)` on tensors updated in place: `new`
+    (module buffers after an update) keep their values if every element of
+    their floating-point ones is finite, else each takes back its copy in
+    `old` (taken before the update). The choice is made on the device (no
+    host read)."""
+    if not new:
+        return
+    ok = all_finite([t for t in new if t.is_floating_point()]).to(
+        new[0].device)
+    for n, o in zip(new, old):
+        n.copy_(torch.where(ok, n, o))

@@ -12,13 +12,17 @@ files in place of orbax directories (orbax is a JAX library):
     at once, and a thread writes it while training goes on; `wait()` joins
     the write and raises its error, `save(wait=True)` waits at once.
 The GAN trainer's pair (`save_gan_checkpoint`, `restore_gan_checkpoint`):
-`g_{step:08d}` is `{"generator": state_dict}` under the reference's keys
-(legacy weight norm), which `convert.hifigan_torch.load_generator_checkpoint`
-reads as it reads a reference file (`vocode`, `predict_ea`); `do_{step:08d}`
-holds the discriminators (the MSD's u/v among its buffers), both optimizers,
-`steps` and, with the nonfinite guard, its counters. The restore is partial
-as in the JAX package: the newest `g_` and the newest `do_` are each loaded
-where found.
+`g_{step:08d}` is `{"generator": state_dict}`: a `WNGenerator`'s under the
+reference's keys (legacy weight norm), which
+`convert.hifigan_torch.load_generator_checkpoint` reads as it reads a
+reference file (`vocode`, `predict_ea`), or a `WNCodeGenerator`'s, whose
+EMA codebooks ride in it as buffers (JAX's g_ carries the `vq` collection
+beside the parameters); `do_{step:08d}` holds the discriminators (the MSD's
+u/v among its buffers), both optimizers, `steps`, with the nonfinite guard
+its counters and, where the state has one, the restart candidates'
+generator state `rng` (JAX saves its PRNG key there). The restore is
+partial as in the JAX package: the newest `g_` and the newest `do_` are
+each loaded where found.
 """
 from __future__ import annotations
 
@@ -122,8 +126,9 @@ def save_gan_checkpoint(ckpt: Checkpointer, state, step: int, *,
     ckpt.save("g_", step, {"generator": full["generator"]})
     do = {k: full[k] for k in ("mpd", "msd", "optim_g", "optim_d")}
     do["steps"] = full["step"]
-    if "guards" in full:
-        do["guards"] = full["guards"]
+    for key in ("guards", "rng"):
+        if key in full:
+            do[key] = full[key]
     ckpt.save("do_", step, do, wait=wait)
 
 
@@ -144,4 +149,6 @@ def restore_gan_checkpoint(ckpt: Checkpointer, state):
         if state.g_guard is not None and "guards" in do:
             state.g_guard.load_state_dict(do["guards"]["g"])
             state.d_guard.load_state_dict(do["guards"]["d"])
+        if state.rng is not None and "rng" in do:
+            state.rng.set_state(do["rng"])
     return state, g is not None, do is not None

@@ -348,11 +348,6 @@ def test_adamw_schedule_matches_optax(rng):
 
 def test_config_refusals():
     jcfg, pcfg = configs()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pgan.make_gan_step(None, None, pcfg.gan, stateful_vq=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pgan.make_gan_step(None, None, dataclasses.replace(
-            pcfg.gan, frozen_g_paths=("fo_vqvae",)), stateful_vq=False)
     with pytest.raises(NotImplementedError, match="item 9"):
         pgan.default_discriminators(dataclasses.replace(
             pcfg.gan, folded_mpd=True), "cpu")

@@ -25,6 +25,8 @@ def _port_modules():
 
 
 def test_every_module_imports_with_jax_blocked():
+    assert {"speech_inpainting_torch.train.da",
+            "speech_inpainting_torch.cli.train_da"} <= set(_port_modules())
     blocked = "".join(f"sys.modules[{b!r}] = None\n" for b in BANNED)
     code = (f"import sys\n{blocked}import importlib, pickle\n"
             f"for m in {_port_modules()!r}:\n"
@@ -123,6 +125,8 @@ def test_entry_points_refuse_the_cpu_unasked():
     from speech_inpainting_torch.train.f0vq import (F0VQConfig,
                                                     make_f0vq_eval,
                                                     make_f0vq_step)
+    from speech_inpainting_torch.cli import train_da
+    from speech_inpainting_torch.convert.from_jax import trainable_codegen
     assert resolve_device("cpu").type == "cpu"
     cg = CodeGeneratorConfig(HiFiGANConfig(), use_f0=False)
     for call in (lambda: resolve_device(),
@@ -175,7 +179,10 @@ def test_entry_points_refuse_the_cpu_unasked():
                                     "o"]),
                  lambda: prep.main(["quantize", "--manifest", "m",
                                     "--hubert", "h", "--kmeans", "k.npy",
-                                    "--out", "o"])):
+                                    "--out", "o"]),
+                 lambda: trainable_codegen(cg),
+                 lambda: train_da.main(["--config", "c", "--train-manifest",
+                                        "m", "--checkpoint-path", "c"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
