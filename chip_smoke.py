@@ -85,6 +85,29 @@ it stopped); any failure raises and exits non-zero:
                 codebook; masks 100-400 ms: every artifact written, 180 K2
                 launches per utterance per mask, `_inpainted_200.wav` within
                 1 int16 step of a direct `IdaInpainter` call, median RTF;
+  evaluate_sweep  the mask-sweep harness (`evaluate_sweep`) over the I_ea
+                inpainter at full width (HuBERT-base + head, V1 drawn to
+                carry the mel, the 100×80 codebook) on a synthetic 4 s
+                utterance: masks of 100/200/400 ms × 8 positions (seed
+                1234), oracle labels and the mel-centroid UER; 432 K1
+                launches (72 per `batch` and per `batch_expected`), kernel
+                path vs plain path (waveforms atol 1e-4, labels equal,
+                metrics within the CPU tests' tolerances), card vs CPU on
+                the short input (one length × 2 positions, the same gates),
+                K1 vs its plain version at the B = 8 tiles no earlier check
+                reached; card seconds per batch, host metric seconds per
+                (wav, mask length), positions per second, the mean table;
+  score_cli     `score.main` on the sweep's 400 ms estimates and the clean
+                utterance as 22.05 kHz wavs, pair and directory modes with
+                `--kmeans` and `--mask`: every value equal to a direct
+                `score_pair` call, unit IDs card vs CPU equal, `--text`
+                without Whisper prints its note;
+  predict_asr_cli  `predict_asr.main --donor` on the full-width I_da files
+                of `ida_cli` (every artifact written, `output_tts.wav`
+                within 1 int16 step of a direct `UnitResynthTTS` call, 180
+                K2 launches, kernel path vs plain path) and `--synth` on
+                that rendering (files equal to a direct
+                `asr_tts_baseline` call);
   vocode        the `vocode` CLI with a V1 `g_*` (full width, B = 1):
                 wav2wav on two 4 s 22.05 kHz wavs, mel2wav on their mels,
                 --quantize-mel with a 100×80 codebook, card vs CPU (files
@@ -196,6 +219,7 @@ Exits 1 without printing a result when no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1233,25 +1257,30 @@ def _serving_batches(rng, B, n):
              (pos + 7 * k) % 180 + 1, lens) for k in range(n)]
 
 
-def _serving_kernel_checks(torch, covered) -> list:
-    """K1 against its plain version at every (C, co tile, t tile, K) that
-    the serving batches' plans take and no earlier check reached (f32 atol,
-    bf16 rel), at the first serving batch size that takes it; and at
-    B = 256's largest stage (C = 32, T = 88 064, K = 11, bf16)."""
-    from speech_inpainting_torch.ops.resblock import (_plan, fused_resblock1,
-                                                      resblock1_reference)
+def _uncovered_shapes(torch, covered, Bs, stage_T) -> list:
+    """(B, C, T, K, float32) for each V1 stage whose K1 plans at batch size
+    B take a (C, co tile, t tile, K) that no earlier check reached, at the
+    first B of `Bs` that takes it; `covered` gains those tiles."""
+    from speech_inpainting_torch.ops.resblock import _plan
     todo = []
-    for B in (SERVING_B, 256):
-        for C, T in _v1_stage_T(344).items():
+    for B in Bs:
+        for C, T in stage_T.items():
             for K in (3, 7, 11):
                 tiles = {(C, _plan(B, C, T, K, d)[:2], K) for d in (1, 3, 5)}
                 if not tiles <= covered:
                     todo.append((B, C, T, K, torch.float32))
                     covered |= tiles
-    todo.append((256, 32, 88064, 11, torch.bfloat16))
+    return todo
+
+
+def _k1_checks(torch, todo, phase, seed) -> list:
+    """K1 against its plain version at each (B, C, T, K, dtype) of `todo`
+    (f32 atol, bf16 rel), inputs drawn on the card."""
+    from speech_inpainting_torch.ops.resblock import (fused_resblock1,
+                                                      resblock1_reference)
     rows = []
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED + 40)
+    gen.manual_seed(seed)
     for B, C, T, K, dtype in todo:
         # drawn on the card: B = 256's stage has 7.2e8 elements
         scale = 0.5 / math.sqrt(C * K)
@@ -1269,12 +1298,22 @@ def _serving_kernel_checks(torch, covered) -> list:
         row = {"B": B, "C": C, "T": T, "K": K,
                "dtype": str(dtype).split(".")[-1], "err": err,
                "tolerance": tol, "ok": err <= tol}
-        emit({"phase": "serving_kernel_check", **row})
+        emit({"phase": phase, **row})
         if not row["ok"]:
-            raise AssertionError(f"fused_resblock1 disagrees at the serving "
-                                 f"shape {row}")
+            raise AssertionError(f"fused_resblock1 disagrees at {row}")
         rows.append(row)
     return rows
+
+
+def _serving_kernel_checks(torch, covered) -> list:
+    """K1 against its plain version at every (C, co tile, t tile, K) that
+    the serving batches' plans take and no earlier check reached (f32 atol,
+    bf16 rel), at the first serving batch size that takes it; and at
+    B = 256's largest stage (C = 32, T = 88 064, K = 11, bf16)."""
+    todo = _uncovered_shapes(torch, covered, (SERVING_B, 256),
+                             _v1_stage_T(344))
+    todo.append((256, 32, 88064, 11, torch.bfloat16))
+    return _k1_checks(torch, todo, "serving_kernel_check", SEED + 40)
 
 
 def _covered_tiles(path) -> set:
@@ -1560,6 +1599,28 @@ def _int16_steps(a, b) -> int:
     return int(np.abs(x.astype(np.int32) - y).max())
 
 
+def _ida_files(torch, setup: dict, d: Path) -> None:
+    """The full-width I_da stack of `setup` as a user's files in `d`: a
+    reference-layout CodeGenerator `g_00400000` ({"generator": sd},
+    weight_g / weight_v, emb_c, emb_p, fo_vqvae.* with the f0-VQ-VAE's
+    decoder, which the reference's files carry), an HF HuBERT-base
+    directory `hubert-base` (config.json + pytorch_model.bin) and the
+    codebook `km.npy`."""
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    from speech_inpainting_torch.testing import (code_generator_state_dict,
+                                                 jukebox_tree,
+                                                 write_hf_hubert)
+    cfg = setup["cfg"]
+    rng = np.random.default_rng(SEED + 80)
+    params = dict(setup["params"], fo_vqvae=dict(
+        setup["params"]["fo_vqvae"], decoder=jukebox_tree(
+            cfg.f0_quantizer.decoder, rng, decoder=True)))
+    torch.save({"generator": code_generator_state_dict(
+        params, setup["vq"], cfg)}, d / "g_00400000")
+    write_hf_hubert(d / "hubert-base", setup["hp"], HubertConfig.base())
+    np.save(d / "km.npy", setup["centroids"])
+
+
 def phase_ida_cli(torch, ida) -> dict:
     """`inpaint_da.main` on the card as a user runs it, at full width
     (configs/da_hubert100_lut.json, HuBERT-base tapped at layer 6, the
@@ -1576,18 +1637,9 @@ def phase_ida_cli(torch, ida) -> dict:
     from speech_inpainting_torch.data.audio import load_wav, save_wav
     from speech_inpainting_torch.data.code_dataset import mel_stats_embedder
     from speech_inpainting_torch.data.manifests import write_manifest
-    from speech_inpainting_torch.models.hubert import HubertConfig
     from speech_inpainting_torch.ops.resblock import fused_resblock_step
-    from speech_inpainting_torch.testing import (code_generator_state_dict,
-                                                 jukebox_tree,
-                                                 write_hf_hubert)
     setup = ida["setup"]
     cfg = setup["cfg"]
-    rng = np.random.default_rng(SEED + 80)
-    # the reference's files carry the f0-VQ-VAE's decoder too
-    params = dict(setup["params"], fo_vqvae=dict(
-        setup["params"]["fo_vqvae"], decoder=jukebox_tree(
-            cfg.f0_quantizer.decoder, rng, decoder=True)))
     with tempfile.TemporaryDirectory() as tmp:
         d = Path(tmp)
         entries = []
@@ -1596,10 +1648,7 @@ def phase_ida_cli(torch, ida) -> dict:
             entries.append({"audio": str(d / f"utt{i}.wav"),
                             "hubert": "1 2 3", "duration": len(u) / 16000})
         write_manifest(d / "val.jsonl", entries)
-        torch.save({"generator": code_generator_state_dict(
-            params, setup["vq"], cfg)}, d / "g_00400000")
-        write_hf_hubert(d / "hubert-base", setup["hp"], HubertConfig.base())
-        np.save(d / "km.npy", setup["centroids"])
+        _ida_files(torch, setup, d)
         fused_resblock_step.launches = 0
         t0 = time.perf_counter()
         rtfs = inpaint_da.main([
@@ -1639,6 +1688,359 @@ def phase_ida_cli(torch, ida) -> dict:
     emit(row)
     if not ok:
         raise AssertionError("inpaint_da CLI check failed")
+    return row
+
+
+# ------------------------------------------------------ the evaluation paths
+
+SWEEP_MASKS_MS = (100, 200, 400)   # a reduced cut of the 20-400 ms protocol
+SWEEP_POSITIONS = 8
+SWEEP_SEED = 1234                  # build_mask_sweep's default seed
+SWEEP_LAUNCHES = 2 * 72 * len(SWEEP_MASKS_MS)   # batch + batch_expected
+# the CPU tests' metric tolerances (tests/test_torch_evaluate.py): the unit
+# columns equal, these within their absolute gaps
+UNIT_METRICS = ("unit_acc", "uer", "uer_mask", "uer_mask_edits")
+METRIC_ATOL = {**dict.fromkeys(("stoi", "estoi", "lsd_d2", "lsd_rmse",
+                                "mel_l1_mask", "stoi_vs_exp",
+                                "estoi_vs_exp"), 1e-3),
+               **dict.fromkeys(("pesq", "si_sdr", "pesq_vs_exp",
+                                "si_sdr_vs_exp"), 1e-2)}
+
+
+def _metric_gaps(got: dict, want: dict) -> tuple[bool, dict]:
+    """(keys equal, the unit columns equal and every other metric within
+    METRIC_ATOL; the gap per metric)."""
+    gaps = {k: abs(got[k] - want[k]) for k in want if k in got}
+    ok = set(got) == set(want) and all(
+        gap == 0.0 if k in UNIT_METRICS else gap <= METRIC_ATOL.get(k, 0.0)
+        for k, gap in gaps.items())
+    return ok, gaps
+
+
+@contextlib.contextmanager
+def _recording(evaluate):
+    """Record, while `infer.evaluate` runs: each device batch's host arrays
+    and wall seconds (a device batch ends with its results on the host, so
+    its time holds the card's), and each (wav, mask length) call's wall
+    seconds."""
+    rec = {"batches": [], "device_s": [], "call_s": []}
+    device_batch, call = evaluate._device_batch, evaluate.evaluate_inpainting
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            rec[key].append(time.perf_counter() - t0)
+            if key == "device_s":
+                rec["batches"].append(out)
+            return out
+        return wrapper
+
+    evaluate._device_batch = timed(device_batch, "device_s")
+    evaluate.evaluate_inpainting = timed(call, "call_s")
+    try:
+        yield rec
+    finally:
+        evaluate._device_batch, evaluate.evaluate_inpainting = (device_batch,
+                                                                call)
+
+
+def _oracle_labels(torch, wav22, centroids) -> np.ndarray:
+    """The clean utterance's nearest centroids on the full hop-441 mel grid
+    (of the peak-normalised wave, as the inpainter's mel), on the CPU."""
+    from speech_inpainting_torch.infer.inpaint import peak_normalize
+    from speech_inpainting_torch.ops.mel import (HUBERT_ALIGNED_MEL_22K,
+                                                 mel_spectrogram)
+    from speech_inpainting_torch.quantize.kmeans import assign
+    with torch.inference_mode():
+        mel = mel_spectrogram(peak_normalize(torch.as_tensor(wav22)),
+                              HUBERT_ALIGNED_MEL_22K)
+        return assign(mel.T, torch.as_tensor(centroids)).numpy()
+
+
+def _sweep_gaps(a: dict, b: dict, ra: dict, rb: dict, atol) -> dict:
+    """Two runs of one sweep: their device arrays (waveforms within `atol`,
+    predicted labels equal) and every metric of every (wav, mask length)
+    and of the mean table (`_metric_gaps`)."""
+    wave = max(float(np.abs(x[k] - y[k]).max())
+               for x, y in zip(ra["batches"], rb["batches"])
+               for k in ("inpainted", "expected"))
+    labels = all(np.array_equal(x["pred_labels"], y["pred_labels"])
+                 for x, y in zip(ra["batches"], rb["batches"]))
+    ok, worst = wave <= atol and labels, {}
+    for name in a:
+        for ms in a[name]:
+            good, gaps = _metric_gaps(a[name][ms], b[name][ms])
+            ok = ok and good
+            for k, g in gaps.items():
+                worst[k] = max(worst.get(k, 0.0), g)
+    return {"waveform_max_abs": wave, "tolerance": atol,
+            "pred_labels_equal": labels, "metric_max_gaps": worst, "ok": ok}
+
+
+def phase_evaluate_sweep(torch, main_setup, covered, d: Path) -> dict:
+    """The mask-sweep harness (`infer/evaluate.py:evaluate_sweep`) over the
+    I_ea inpainter at full width: `_ea_setup`'s HuBERT-base + head and
+    100×80 codebook, with V1 drawn to carry the mel (`generator_tree(carry=
+    True)`: under HiFi-GAN's N(0, 0.01) init the waveform barely moves with
+    the mel, and SI-SDR between the inpainted and the oracle renderings
+    then reads rounding noise), one synthetic 4 s utterance, masks of
+    100/200/400 ms × 8 positions (seed 1234), oracle labels (the clean
+    utterance's nearest centroids on the full mel grid) and the
+    mel-centroid `UnitScorer` of `score._mel_unit_scorer`. Gates: K1's
+    launches (72 per `batch` and per `batch_expected`), the kernel path
+    against the plain path and card against CPU on `_short_inputs` (one
+    length × 2 positions): waveforms within MAIN_ATOL / CPU_ATOL, labels
+    equal, every metric within the CPU tests' tolerances; K1 against its
+    plain version at the B = 8 tiles no earlier check reached."""
+    from speech_inpainting_torch.cli.score import _mel_unit_scorer
+    from speech_inpainting_torch.infer import evaluate
+    from speech_inpainting_torch.infer.inpaint import InformedInpainter
+    from speech_inpainting_torch.ops.resblock import fused_resblock1
+    from speech_inpainting_torch.testing import (generator_tree,
+                                                 synthetic_batch)
+    t_phase = time.perf_counter()
+    cfg, hp, _, centroids = main_setup
+    gp = generator_tree(cfg.hifigan, np.random.default_rng(SEED + 90),
+                        carry=True)
+    w22, w16, _, _ = synthetic_batch(np.random.default_rng(SEED + 91), 1,
+                                     4.0)
+    wavs22, wavs16 = {"utt": w22[0]}, {"utt": w16[0]}
+    sweep = evaluate.build_mask_sweep({"utt": w16.shape[1]}, SWEEP_MASKS_MS,
+                                      n_positions=SWEEP_POSITIONS,
+                                      seed=SWEEP_SEED)
+    labels = {"utt": _oracle_labels(torch, w22[0], centroids)}
+    np.save(d / "km.npy", centroids)
+    units = _mel_unit_scorer(str(d / "km.npy"), "cuda")
+    inp = InformedInpainter(cfg, hp, gp, centroids)
+
+    def run(inp, units, wavs=(wavs22, wavs16), sweep=sweep, labels=labels):
+        with _recording(evaluate) as rec:
+            t0 = time.perf_counter()
+            res = evaluate.evaluate_sweep(inp, *wavs, sweep, labels=labels,
+                                          unit_scorer=units)
+            torch.cuda.synchronize()
+            rec["seconds"] = time.perf_counter() - t0
+        return res, rec
+
+    # one warm batch at the sweep's shapes (cuDNN's and cuBLAS's first
+    # calls at them), then the counted run
+    evaluate._device_batch(inp, w22[0], w16[0], np.zeros(8, np.int64),
+                           np.full(8, 5, np.int64), None)
+    fused_resblock1.launches = 0
+    res, rec = run(inp, units)
+    launches = fused_resblock1.launches
+    inp.generator.use_kernel = False
+    plain, plain_rec = run(inp, units)
+    inp.generator.use_kernel = True
+    vs_plain = _sweep_gaps(res, plain, rec, plain_rec, MAIN_ATOL)
+
+    # card against CPU on the short input, one length × 2 positions
+    s22, s16, _, _ = _short_inputs()
+    short = {"short": s22[0]}, {"short": s16[0]}
+    s_sweep = evaluate.build_mask_sweep({"short": s16.shape[1]}, (100,),
+                                        n_positions=2, seed=SWEEP_SEED)
+    s_labels = {"short": _oracle_labels(torch, s22[0], centroids)}
+    cpu = InformedInpainter(cfg, hp, gp, centroids, device="cpu")
+    card_s, card_rec = run(inp, units, short, s_sweep, s_labels)
+    cpu_s, cpu_rec = run(cpu, _mel_unit_scorer(str(d / "km.npy"), "cpu"),
+                         short, s_sweep, s_labels)
+    vs_cpu = _sweep_gaps(card_s, cpu_s, card_rec, cpu_rec, CPU_ATOL)
+
+    checks = _k1_checks(torch, _uncovered_shapes(
+        torch, covered, (SWEEP_POSITIONS,), _v1_stage_T(344)),
+        "evaluate_kernel_check", SEED + 92)
+    n_pos = sum(len(p) for p in sweep["utt"].values())
+    host_s = [c - b for c, b in zip(rec["call_s"], rec["device_s"])]
+    ok = (launches == SWEEP_LAUNCHES and vs_plain["ok"] and vs_cpu["ok"])
+    row = {"phase": "evaluate_sweep", "masks_ms": list(SWEEP_MASKS_MS),
+           "positions": SWEEP_POSITIONS, "batch": SWEEP_POSITIONS,
+           "launches": launches, "expected_launches": SWEEP_LAUNCHES,
+           "kernel_vs_plain": vs_plain, "card_vs_cpu": vs_cpu,
+           "kernel_checks": len(checks),
+           "card_s_per_batch": rec["device_s"],
+           "host_metric_s_per_wav_length": host_s,
+           "sweep_seconds": rec["seconds"],
+           "positions_per_second": n_pos / rec["seconds"],
+           # each position scored against the clean reference and against
+           # the oracle, whose labels span the whole mel grid
+           "pairs_per_second": 2 * n_pos / rec["seconds"],
+           "plain_sweep_seconds": plain_rec["seconds"],
+           "phase_seconds": time.perf_counter() - t_phase, "ok": ok}
+    emit(row)
+    emit({"phase": "evaluate_sweep_mean", "mean": res["mean"]})
+    if not ok:
+        raise AssertionError("evaluate_sweep check failed")
+    return {**row, "kernel_check_rows": checks, "clean": w22[0],
+            "estimates_400": rec["batches"][SWEEP_MASKS_MS.index(400)][
+                "inpainted"], "positions_400": sweep["utt"][400],
+            "kmeans": d / "km.npy"}
+
+
+def phase_score_cli(torch, ev: dict, d: Path) -> dict:
+    """`score.main` on the card on the sweep's 400 ms estimates and the
+    clean utterance written as 22.05 kHz wavs, in pair mode and directory
+    mode, with `--kmeans` (the codebook as .npy) and `--mask` (the first
+    position's span): every value equal to a direct `score_pair` call; the
+    unit IDs of every wav equal on the card and on the CPU; `--text` with
+    no usable Whisper prints the note and scores no WER/CER."""
+    import io
+    from speech_inpainting_torch.cli import score
+    from speech_inpainting_torch.data.audio import load_wav, save_wav
+    from speech_inpainting_torch.metrics.asr import WhisperScorer
+    t_phase = time.perf_counter()
+    ref_dir, deg_dir = d / "ref", d / "deg"
+    ref_dir.mkdir()
+    deg_dir.mkdir()
+    for i, est in enumerate(ev["estimates_400"]):
+        save_wav(ref_dir / f"pos{i}.wav", ev["clean"][:est.shape[-1]], 22050)
+        save_wav(deg_dir / f"pos{i}.wav", est, 22050)
+    start = ev["positions_400"][0] // 320 * 0.02
+    mask = f"{start:.2f}:{start + 0.4:.2f}"
+    km = str(ev["kmeans"])
+    units = ["--kmeans", km, "--mask", mask, "--device", "cuda"]
+    pair = ["--ref", str(ref_dir / "pos0.wav"), "--deg",
+            str(deg_dir / "pos0.wav")]
+    t0 = time.perf_counter()
+    res_pair = score.main(pair + units)
+    pair_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_dir = score.main(["--ref-dir", str(ref_dir), "--deg-dir",
+                          str(deg_dir), "--json", str(d / "scores.json")]
+                         + units)
+    dir_s = time.perf_counter() - t0
+    card_units = score._mel_unit_scorer(km, "cuda")
+    cpu_units = score._mel_unit_scorer(km, "cpu")
+    span = tuple(float(v) for v in mask.split(":"))
+    equal, units_equal = True, True
+    for name in res_dir["files"]:
+        ref, _ = load_wav(ref_dir / f"{name}.wav")
+        deg, _ = load_wav(deg_dir / f"{name}.wav")
+        direct = score.score_pair(ref, deg, 22050, unit_scorer=card_units,
+                                  mask_span=span, device="cuda")
+        equal = equal and direct == res_dir["files"][name]
+        for w in (ref, deg):
+            units_equal = units_equal and np.array_equal(
+                card_units.units(w, 22050), cpu_units.units(w, 22050))
+    equal = equal and res_pair["files"]["pos0"] == res_dir["files"]["pos0"]
+    mean_equal = res_dir["mean"] == {
+        k: float(np.mean([r[k] for r in res_dir["files"].values()]))
+        for k in res_dir["mean"]}
+    whisper = WhisperScorer.available()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res_text = score.main(pair + units + ["--text", "a test sentence"])
+    note = "note: no local Whisper cache — WER/CER skipped" in out.getvalue()
+    no_wer = "wer" not in res_text["files"]["pos0"]
+    ok = (equal and mean_equal and units_equal and not whisper and note
+          and no_wer and len(res_dir["files"]) == len(ev["estimates_400"]))
+    row = {"phase": "score_cli", "pairs": len(res_dir["files"]),
+           "mask": mask, "values_equal_direct": equal,
+           "mean_equal": mean_equal, "units_card_equal_cpu": units_equal,
+           "whisper_available": whisper, "text_note_printed": note,
+           "pair_seconds": pair_s, "dir_seconds": dir_s,
+           "phase_seconds": time.perf_counter() - t_phase,
+           "mean": res_dir["mean"], "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("score CLI check failed")
+    return row
+
+
+def phase_predict_asr_cli(torch, ida) -> dict:
+    """`predict_asr.main` on the card as a user runs it, on `_ida_files`
+    (configs/da_hubert100_lut.json's full width, HuBERT-base tapped at
+    layer 6): `--donor` (a 4 s donor recording, a speaker wav, a 4 s input
+    masked over 1.5-1.7 s) writes every artifact, its `output_tts.wav`
+    within 1 int16 step of a direct `UnitResynthTTS` call on the same trees
+    (180 K2 launches, two vocoder calls), the kernel path against the plain
+    path (atol MAIN_ATOL); `--synth` on that rendering writes files equal
+    to a direct `asr_tts_baseline` call."""
+    import tempfile
+    from speech_inpainting_torch.cli import predict_asr
+    from speech_inpainting_torch.data.audio import load_wav, save_wav
+    from speech_inpainting_torch.data.code_dataset import mel_stats_embedder
+    from speech_inpainting_torch.infer.asr_baseline import (
+        ASRBaselineConfig, UnitResynthTTS, asr_tts_baseline)
+    from speech_inpainting_torch.ops.resblock import fused_resblock_step
+    t_phase = time.perf_counter()
+    setup = ida["setup"]
+    utts = setup["utts"]
+    masked = utts[1].copy()
+    masked[24000:27200] = 0.0
+    span = (1.5, 1.7)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        _ida_files(torch, setup, d)
+        for name, wav in (("masked", masked), ("donor", utts[0]),
+                          ("speaker", utts[2])):
+            _write_wav(d / f"{name}.wav", wav, 16000)
+        base = ["--input", str(d / "masked.wav"), "--mask",
+                f"{span[0]}:{span[1]}", "--device", "cuda"]
+        fused_resblock_step.launches = 0
+        t0 = time.perf_counter()
+        res = predict_asr.main(base + [
+            "--donor", str(d / "donor.wav"), "--config", str(IDA_CONFIG),
+            "--codegen-checkpoint", str(d / "g_00400000"),
+            "--hubert", str(d / "hubert-base"), "--layer", str(IDA_TAP),
+            "--kmeans", str(d / "km.npy"), "--speaker-wav",
+            str(d / "speaker.wav"), "--out", str(d / "donor_out")])
+        torch.cuda.synchronize()
+        donor_s = time.perf_counter() - t0
+        launches = fused_resblock_step.launches
+        written = sorted(p.name for p in (d / "donor_out").iterdir())
+        want = sorted(["orig.wav", "speaker_wav.wav", "output_tts.wav",
+                       "mask_synth_stretched.wav", "inpainted.wav",
+                       "inpainted_with_silence.wav", "transcript.txt"])
+        # the same files' arrays through the port directly
+        donor, _ = load_wav(d / "donor.wav", target_sr=16000)
+        speaker, _ = load_wav(d / "speaker.wav", target_sr=16000)
+        inp = _ida_inpainter(torch, setup, torch.float32)
+        tts = UnitResynthTTS(inp, embedder=mel_stats_embedder(
+            setup["cfg"].embedding_dim, device="cuda"))
+        direct = tts(donor, speaker)
+        save_wav(d / "direct_tts.wav", direct, 16000)
+        steps = _int16_steps(d / "donor_out" / "output_tts.wav",
+                             d / "direct_tts.wav")
+        inp.codegen.generator.use_kernel = False
+        plain = tts(donor, speaker)
+        inp.codegen.generator.use_kernel = True
+        diff = float(np.abs(direct - plain).max())
+        # --synth on that rendering, against a direct call
+        t0 = time.perf_counter()
+        predict_asr.main(base + [
+            "--synth", str(d / "donor_out" / "output_tts.wav"),
+            "--transcript", "a test sentence", "--out", str(d / "synth_out")])
+        synth_s = time.perf_counter() - t0
+        y_synth, _ = load_wav(d / "donor_out" / "output_tts.wav",
+                              target_sr=16000)
+        ref = asr_tts_baseline(load_wav(d / "masked.wav", target_sr=16000)[0],
+                               span, y_synth=y_synth,
+                               transcript="a test sentence",
+                               cfg=ASRBaselineConfig())
+        synth_steps = 0
+        for name, key in (("inpainted.wav", "inpainted"),
+                          ("inpainted_with_silence.wav",
+                           "inpainted_with_silence"),
+                          ("mask_synth_stretched.wav", "patch")):
+            save_wav(d / "direct.wav", ref[key], 16000)
+            synth_steps = max(synth_steps, _int16_steps(
+                d / "synth_out" / name, d / "direct.wav"))
+    ok = (written == want and launches == 180 and steps <= 1
+          and diff <= MAIN_ATOL and synth_steps == 0
+          and float(np.abs(direct).max()) > 1e-3)
+    row = {"phase": "predict_asr_cli", "written": len(written),
+           "expected_written": len(want), "launches": launches,
+           "expected_launches": 180, "output_tts_vs_direct_int16_steps":
+           steps, "kernel_vs_plain_max_abs": diff, "tolerance": MAIN_ATOL,
+           "synth_vs_direct_int16_steps": synth_steps,
+           "patch_seconds": len(res["patch"]) / 16000,
+           "target_span_s": [float(v) for v in res["target_span_s"]],
+           "donor_seconds": donor_s, "synth_seconds": synth_s,
+           "phase_seconds": time.perf_counter() - t_phase, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("predict_asr CLI check failed")
     return row
 
 
@@ -4101,6 +4503,12 @@ def main() -> int:
     large_launches = large["launches"]
     del large
     ida_cli = phase_ida_cli(torch, ida)
+    import tempfile
+    with tempfile.TemporaryDirectory() as eval_dir:
+        ev = phase_evaluate_sweep(torch, path["setup"], covered,
+                                  Path(eval_dir))
+        phase_score_cli(torch, ev, Path(eval_dir))
+    asr = phase_predict_asr_cli(torch, ida)
     voc = phase_vocode(torch)
     phase_v3(torch)
     phase_f0vq(torch)
@@ -4118,7 +4526,6 @@ def main() -> int:
     del f0ds
     phase_da_step_parity(torch)
     phase_da_train(torch)
-    import tempfile
     with tempfile.TemporaryDirectory() as prep_dir:
         f0cli = phase_prep_and_train_f0vq_cli(torch, ida, Path(prep_dir))
         dcli = phase_train_da_cli(torch, ida, Path(prep_dir))
@@ -4152,7 +4559,9 @@ def main() -> int:
         # B = 64 serving batches at depth 4, the long-form recording's one
         # batch of 8 windows, the CLI's three vocoder calls, the same three
         # from the I_ea trainer's last_ checkpoint and from the GAN trainer's
-        # g_ (training launches none)
+        # g_ (training launches none), and the evaluation sweep's three
+        # (wav, mask length) batches, each a `batch` and a `batch_expected`
+        # of B = 8
         "launches_by_path": {
             "I_ea_hubert_base_v1": path["launches"],
             "I_ea_hubert_large_v1": large_launches,
@@ -4161,11 +4570,14 @@ def main() -> int:
             "longform_60s": longform["launches"],
             "cli_predict_ea": cli["launches"],
             "train_ea_cli_predict_ea_from_last": tcli["launches"],
-            "predict_ea_from_trained_g": gcli["predict_ea_k1_launches"]},
-        # the worst over the three checks: V1's 12 (C, K) shapes at B=2,
-        # T=2049, the main path's 12 shapes at B=4, and the edge shapes
+            "predict_ea_from_trained_g": gcli["predict_ea_k1_launches"],
+            "evaluate_sweep_3_lengths_x_8_positions": ev["launches"]},
+        # the worst over the checks: V1's 12 (C, K) shapes at B=2,
+        # T=2049, the main path's 12 shapes at B=4, the edge shapes, and
+        # the sweep's B = 8 tiles no earlier check reached
         "max_abs_err": max(errs["f32_max_abs_err"], timed["float32"]["err"],
-                           edge["K1"]["f32_max_abs_err"]),
+                           edge["K1"]["f32_max_abs_err"],
+                           *(r["err"] for r in ev["kernel_check_rows"])),
         "bf16_rel_err": max(errs["bf16_rel_err"], timed["bfloat16"]["err"],
                             edge["K1"]["bf16_rel_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -4194,8 +4606,9 @@ def main() -> int:
         # generator), one vocode forward from the g_ it wrote, one I_da
         # utterance whose pitch quantizer train_f0vq trained, the unit
         # HiFi-GAN trainer's validation sweep (one B = 4 forward of the
-        # folded CodeGenerator) and one I_da utterance through the
-        # CodeGenerator it trained
+        # folded CodeGenerator), one I_da utterance through the
+        # CodeGenerator it trained, and the ASR→TTS baseline's donor
+        # rendering (predict_asr --donor: two vocoder calls)
         "launches_by_path": {
             "I_da_utterance": ida["launches"],
             "inpaint_da_cli_per_utterance_per_mask":
@@ -4210,7 +4623,8 @@ def main() -> int:
                 f0cli["k2_launches"],
             "train_da_validation_sweep":
                 dcli["runs"][0]["validation_k2_launches"],
-            "I_da_utterance_with_trained_codegen": dcli["k2_launches"]},
+            "I_da_utterance_with_trained_codegen": dcli["k2_launches"],
+            "predict_asr_donor_rendering": asr["launches"]},
         # the worst over the I_da generator's 45 step shapes, V1's 36 at
         # the vocode CLI's lengths and 36 at the GAN trainer's validation
         # sweep (B = 16), the I_da generator's 45 at the DA trainer's sweep

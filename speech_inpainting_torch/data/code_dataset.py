@@ -69,14 +69,17 @@ def mel_stats_embedder(dim: int = 256, device=None):
     return embed
 
 
-def torchscript_embedder(wav2mel_path: str, embedder_path: str):
-    """The reference's TorchScript wav2mel + d-vector embedder pair (on
-    the CPU, as the reference runs it): embed(wav, sr) → numpy d-vector."""
-    wav2mel = torch.jit.load(wav2mel_path, map_location="cpu")
-    embedder = torch.jit.load(embedder_path, map_location="cpu").eval()
+def torchscript_embedder(wav2mel_path: str, embedder_path: str,
+                         device=None):
+    """The reference's TorchScript wav2mel + d-vector embedder pair on
+    `device` (the CUDA card unless "cpu" is asked for): embed(wav, sr) →
+    numpy d-vector."""
+    device = resolve_device(device)
+    wav2mel = torch.jit.load(wav2mel_path, map_location=device)
+    embedder = torch.jit.load(embedder_path, map_location=device).eval()
 
     def embed(wav: np.ndarray, sr: int) -> np.ndarray:
-        t = torch.from_numpy(np.asarray(wav, np.float32))[None]
+        t = torch.from_numpy(np.asarray(wav, np.float32))[None].to(device)
         mel = wav2mel(t, sr)
         with torch.no_grad():
             return embedder.embed_utterance(mel).cpu().numpy()

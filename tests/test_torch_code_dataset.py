@@ -221,7 +221,7 @@ def test_torchscript_embedder_matches_jax(tmp_path):
     torch.jit.save(torch.jit.script(_Embedder()), tmp_path / "dvector.pt")
     paths = (str(tmp_path / "wav2mel.pt"), str(tmp_path / "dvector.pt"))
     wav = testing.synthetic_utterance(np.random.default_rng(2), 0.5)
-    got = pcd.torchscript_embedder(*paths)(wav, 16000)
+    got = pcd.torchscript_embedder(*paths, device="cpu")(wav, 16000)
     want = jcd.torchscript_embedder(*paths)(wav, 16000)
     assert got.shape == (16,)
     np.testing.assert_array_equal(got, want)

@@ -47,19 +47,37 @@ def test_every_module_imports_with_jax_blocked():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
-def _imported(path: Path):
-    for node in ast.walk(ast.parse(path.read_text())):
+def _imported(tree):
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
 
 
+# Whisper's WER/CER column needs `transformers` where a local model cache
+# exists: metrics/asr.py may import it, inside its functions only (so that
+# importing the module never does, and `available()` is False without it)
+LAZY = {PORT / "metrics" / "asr.py": {"transformers"}}
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
                          + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import(path):
-    for name in _imported(path):
+    tree = ast.parse(path.read_text())
+    lazy = LAZY.get(path, set())
+    functions = [node for node in ast.walk(tree)
+                 if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef))]
+    inner = [name for f in functions for stmt in f.body
+             for name in _imported(stmt)]
+    for name in inner:
+        if name.split(".")[0] not in lazy:
+            assert name.split(".")[0] not in BANNED, f"{path} imports {name}"
+    # every import outside a function body, the allowed packages included
+    for fn in functions:
+        fn.body = []
+    for name in _imported(tree):
         assert name.split(".")[0] not in BANNED, f"{path} imports {name}"
 
 
@@ -127,6 +145,10 @@ def test_entry_points_refuse_the_cpu_unasked():
                                                     make_f0vq_step)
     from speech_inpainting_torch.cli import train_da
     from speech_inpainting_torch.convert.from_jax import trainable_codegen
+    from speech_inpainting_torch.cli import predict_asr, score
+    from speech_inpainting_torch.data.code_dataset import (
+        torchscript_embedder)
+    from speech_inpainting_torch.metrics.asr import WhisperScorer
     assert resolve_device("cpu").type == "cpu"
     cg = CodeGeneratorConfig(HiFiGANConfig(), use_f0=False)
     for call in (lambda: resolve_device(),
@@ -182,7 +204,14 @@ def test_entry_points_refuse_the_cpu_unasked():
                                     "--out", "o"]),
                  lambda: trainable_codegen(cg),
                  lambda: train_da.main(["--config", "c", "--train-manifest",
-                                        "m", "--checkpoint-path", "c"])):
+                                        "m", "--checkpoint-path", "c"]),
+                 lambda: torchscript_embedder("w", "e"),
+                 lambda: WhisperScorer(),
+                 lambda: score.main(["--ref", "r", "--deg", "d"]),
+                 lambda: predict_asr.main([
+                     "--input", "m", "--mask", "0.2:0.4", "--donor", "d",
+                     "--config", "c", "--codegen-checkpoint", "g",
+                     "--hubert", "h", "--kmeans", "k", "--out", "o"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
