@@ -26,7 +26,9 @@ it stopped); any failure raises and exits non-zero:
   kernel_time   K1 against its plain version at the main path's shapes
                 (same tolerances), then kernel, plain version and library
                 chain timed there, per stage and per forward, beside the
-                card's bound;
+                card's bound; the `torch.ops.si.resblock1` operator route
+                timed beside the direct call, per forward and in host µs
+                per call at a small shape;
   ida_main      decoder-adaptation inpainting (I_da) at full width
                 (HuBERT-base tapped at layer 6, 100×768 centroids, the
                 CodeGenerator of configs/da_hubert100_lut.json, a 128-wide
@@ -42,7 +44,8 @@ it stopped); any failure raises and exits non-zero:
                 path's own B and T (same tolerances);
   ida_kernel_time   K2, its plain version and the library chain timed at
                 those shapes, summed per stage and per vocoder call, beside
-                the bound;
+                the bound; its operator route beside the direct call, as
+                for K1;
   default_flags both entry points again under torch's default TF32 flags
                 (cuDNN may use TF32 for float32 convolutions): the entry
                 points pin full float32 themselves, so the card-vs-CPU gates
@@ -77,6 +80,24 @@ it stopped); any failure raises and exits non-zero:
                 written (mel PNGs where matplotlib is installed), inpainted
                 wav within 1 int16 step of a direct call, `--long-form` with
                 two masks;
+  aot_export    the serving artifact (infer/aot.py) of the main path's
+                full-width inpainter, f32 and bf16, and of the iSTFT engine
+                override, exported batch-polymorphic on the card for 4 s
+                utterances, then loaded and run at B = 4 and 8 in a child
+                process that cannot import the port's models, converters or
+                live inpainter: K1 launches per batch (72; 36 for the
+                engine), waveforms against the live batch (f32 atol 1e-4,
+                bf16 rel 3e-2), labels equal; export, load and batch times
+                beside the live batch's, ms and audio-s/s;
+  export_aot_cli  `export_aot.main --platforms cuda,cpu` on a HuBERT-base
+                `CustomModel` state dict, the V1 `g_*` and the codebook as
+                files: equal to a direct `save_serving_artifact` (atol
+                1e-6), 72 K1 launches, within 1e-4 of the live batch, and
+                loaded on the CPU within 1e-4 of the card;
+  int8_hubert   `HubertConfig.int8` at HuBERT-base's full width, B = 4 × 4
+                s: int8 against f32 by tests/test_int8.py's relative error,
+                the card against the CPU on 0.5 s, `dynamic_int8_dot` card
+                against CPU, ms per forward beside f32 and bf16;
   ida_cli       `inpaint_da.main` on the card at full width (the config,
                 weights and codebook of `ida_main`) on files written to a
                 temporary directory: two 4 s wavs in a JSON-lines manifest,
@@ -311,6 +332,46 @@ def library_ms(torch, fn, iters):
         torch.backends.cudnn.benchmark = False
 
 
+def host_us(torch, fn, calls: int = 50) -> float:
+    """Host microseconds per call of `fn`: Python, dispatch and the
+    launches' enqueue, over `calls` back-to-back calls after a synchronised
+    warm-up (few enough that the launch queue never fills, so nothing waits
+    on the card)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+ROUTE_SHAPE = (1, 32, 512, 3)   # B, C, T, K: a call the card finishes
+#                                 faster than the host issues it
+
+
+def _route_us(torch, dtype, step: bool) -> dict:
+    """K1's (or, with `step`, K2's) direct ctypes call against its
+    `torch.library` operator: host µs per call at ROUTE_SHAPE, where the
+    host's cost is all there is, in turns (direct, op, op, direct) twice."""
+    from speech_inpainting_torch.ops import resblock as rb
+    B, C, T, K = ROUTE_SHAPE
+    rng = np.random.default_rng(SEED)
+    if step:
+        args = _step_inputs(rng, C, T, K, torch, dtype, B)
+        direct = lambda: rb.fused_resblock_step(*args, 3)
+        op = lambda: torch.ops.si.resblock_step(*args, 3)
+    else:
+        args = _resblock_inputs(rng, B, C, T, K, 3, torch, dtype)
+        direct = lambda: rb.fused_resblock1(*args, (1, 3, 5))
+        op = lambda: torch.ops.si.resblock1(*args, [1, 3, 5])
+    t = [host_us(torch, f, 100) for f in (direct, op, op, direct) * 2]
+    return {"shape_B_C_T_K": ROUTE_SHAPE,
+            "direct_us_per_call": sum(t[0::4] + t[3::4]) / 4,
+            "op_us_per_call": sum(t[1::4] + t[2::4]) / 4}
+
+
 # ------------------------------------------------------------------- phases
 
 def phase_device(torch) -> dict:
@@ -488,11 +549,12 @@ def phase_kernel_time(torch, stage_T: dict) -> dict:
                                                       resblock1_reference)
     rng = np.random.default_rng(SEED)
     dils, S = (1, 3, 5), 3
+    op = torch.ops.si.resblock1
     timed = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-               "bound_fma_ms": 0.0, "err": 0.0}
+        tot = {"ms": 0.0, "op_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "bound_ms": 0.0, "bound_fma_ms": 0.0, "err": 0.0}
         floors = {"operations": 0.0, "bytes": 0.0}
         stages = {}
         for C, T in stage_T.items():
@@ -510,6 +572,7 @@ def phase_kernel_time(torch, stage_T: dict) -> dict:
                         f"B=4 C={C} T={T} K={K} {name}: {err} > {tol}")
                 tot["err"] = max(tot["err"], err)
                 ms = cuda_ms(lambda: fused_resblock1(*args, dils), 3)
+                tot["op_ms"] += cuda_ms(lambda: op(*args, list(dils)), 3)
                 plain_ms = cuda_ms(
                     lambda: pinned(resblock1_reference, *args, dils), 3)
                 lib = library_ms(
@@ -530,6 +593,7 @@ def phase_kernel_time(torch, stage_T: dict) -> dict:
                 floors["operations"] += t_ops
                 floors["bytes"] += t_bytes
                 del args
+        tot["route"] = _route_us(torch, dtype, step=False)
         # the sum of the 12 calls' floors is bound by what dominates it
         tot["bound_by"] = max(floors, key=floors.get)
         tot["by_C"] = stages
@@ -914,16 +978,18 @@ def phase_ida_kernel_time(torch, path) -> dict:
     from speech_inpainting_torch.ops.resblock import (fused_resblock_step,
                                                       resblock_step_reference)
     rng = np.random.default_rng(SEED)
+    op = torch.ops.si.resblock_step
     timed = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+        tot = {"ms": 0.0, "op_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "bound_ms": 0.0, "bound_fma_ms": 0.0}
         floors = {"operations": 0.0, "bytes": 0.0}
         stages = {}
         for C, T, K, d in _ida_shapes(path):
             args = _step_inputs(rng, C, T, K, torch, dtype)
             ms = cuda_ms(lambda: fused_resblock_step(*args, d), 5)
+            tot["op_ms"] += cuda_ms(lambda: op(*args, d), 5)
             plain_ms = cuda_ms(
                 lambda: pinned(resblock_step_reference, *args, d), 5)
             lib = library_ms(
@@ -942,6 +1008,7 @@ def phase_ida_kernel_time(torch, path) -> dict:
                   "T": T, "K": K, "dilation": d, **row,
                   "bound_by": "operations" if t_ops >= t_bytes
                   else "bytes"})
+        tot["route"] = _route_us(torch, dtype, step=True)
         tot["bound_by"] = max(floors, key=floors.get)
         tot["by_C"] = stages
         timed[name] = tot
@@ -1548,6 +1615,301 @@ def phase_cli(torch, large) -> dict:
     if not ok:
         raise AssertionError("predict_ea CLI check failed")
     return {"launches": launches}
+
+
+# ------------------------------------------------- the serving artifact
+
+AOT_SECONDS = 4.0
+AOT_BATCHES = (4, 8)
+INT8_RTOL = 0.1    # int8 HuBERT-base against f32, relative norm error: the
+#                    random-weight encoder carries float32 rounding, through
+#                    int8 code flips, to a few 1e-2 of its output (the card
+#                    against the CPU on one input reads as much); a broken
+#                    quantizer reads ~1
+# the loaded artifacts run in a process that cannot import the port's
+# models, converters or live inpainter (nor JAX): argv is the directory of
+# the artifacts and their inputs, then the artifacts' names
+AOT_CHILD = r"""
+import json, sys, time
+import numpy as np
+for name in ("jax", "speech_inpainting_tpu", "speech_inpainting_torch.models",
+             "speech_inpainting_torch.convert",
+             "speech_inpainting_torch.infer.inpaint"):
+    sys.modules[name] = None
+import torch
+from pathlib import Path
+from speech_inpainting_torch.infer.aot import load_serving_artifact
+from speech_inpainting_torch.ops.resblock import fused_resblock1
+d, names = Path(sys.argv[1]), sys.argv[2:]
+x = np.load(d / "inputs.npz")
+out = {}
+for name in names:
+    t0 = time.perf_counter()
+    art = load_serving_artifact(d / name)
+    torch.cuda.synchronize()
+    row = {"load_s": time.perf_counter() - t0, "runs": {}}
+    for B in sorted(int(k[3:]) for k in x.files if k.startswith("w22")):
+        args = [x[f"{k}{B}"] for k in ("w22", "w16", "pos", "lens")]
+        fused_resblock1.launches = 0
+        res = art.batch(*args)
+        torch.cuda.synchronize()
+        launches = fused_resblock1.launches
+        np.savez(d / f"{name}_{B}.npz",
+                 **{k: v.float().cpu().numpy() if k != "pred_labels"
+                    else v.cpu().numpy() for k, v in res.items()})
+        dev = [torch.as_tensor(a, device="cuda") for a in args]
+        art.batch(*dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            art.batch(*dev)
+        torch.cuda.synchronize()
+        row["runs"][B] = {"launches": launches,
+                          "batch_s": (time.perf_counter() - t0) / 5}
+    out[name] = row
+    del art
+print(json.dumps(out))
+"""
+
+
+def _aot_gap(torch, got: dict, live: dict, dtype) -> tuple[float, bool]:
+    """The artifact's waveform against the live one (max abs in f32,
+    relative to the live peak in bf16) and whether the labels are equal."""
+    want = live["inpainted"].float().cpu().numpy()
+    err = float(np.abs(got["inpainted"] - want).max())
+    if dtype == torch.bfloat16:
+        err /= float(np.abs(want).max())
+    return err, bool(np.array_equal(got["pred_labels"],
+                                    live["pred_labels"].cpu().numpy()))
+
+
+def phase_aot_export(torch, main_setup, d: Path) -> dict:
+    """The serving artifact at the main path's full width (HuBERT-base +
+    head, the 100×80 codebook, V1; 4 s utterances) in f32 and bf16, and
+    once with the iSTFT engine (C8C8I, width 512) as the generator
+    override: each exported batch-polymorphic on the card and saved, then
+    loaded and run at B = 4 and 8 in a child process that cannot import
+    the port's models, converters or live inpainter; its waveforms against
+    the live `InformedInpainter.batch` (f32 atol MAIN_ATOL, bf16 rel
+    BF16_RTOL), labels equal, K1 launches per batch (72 for V1, 36 for the
+    engine); export, load and batch times beside the live batch's."""
+    from speech_inpainting_torch.convert.from_jax import (
+        istft_generator_from_jax)
+    from speech_inpainting_torch.infer.aot import save_serving_artifact
+    from speech_inpainting_torch.infer.inpaint import (InformedInpainter,
+                                                       InpainterConfig)
+    from speech_inpainting_torch.models.hifigan import HiFiGANConfig
+    from speech_inpainting_torch.models.hifigan_istft import (
+        ISTFTGeneratorConfig)
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    from speech_inpainting_torch.testing import (generator_tree,
+                                                 synthetic_batch)
+    cfg, hp, gp, centroids = main_setup
+    rng = np.random.default_rng(SEED + 80)
+    batches = {B: synthetic_batch(rng, B, AOT_SECONDS) for B in AOT_BATCHES}
+    np.savez(d / "inputs.npz", **{
+        f"{k}{B}": v for B, x in batches.items()
+        for k, v in zip(("w22", "w16", "pos", "lens"), x)})
+    t22, t16 = (a.shape[1] for a in batches[AOT_BATCHES[0]][:2])
+    bf = InpainterConfig(HubertConfig.base(dtype=torch.bfloat16),
+                         HiFiGANConfig(dtype=torch.bfloat16))
+    icfg = ISTFTGeneratorConfig()
+    engines = {
+        "v1_float32": (InformedInpainter(cfg, hp, gp, centroids),
+                       torch.float32, 72),
+        "v1_bfloat16": (InformedInpainter(bf, hp, gp, centroids),
+                        torch.bfloat16, 72),
+        "istft_float32": (InformedInpainter(
+            cfg, hp, None, centroids, generator=istft_generator_from_jax(
+                icfg, generator_tree(icfg, rng))), torch.float32, 36)}
+    rows = {}
+    for name, (inp, dtype, n) in engines.items():
+        t0 = time.perf_counter()
+        meta = save_serving_artifact(d / name, inp, t22, t16)
+        rows[name] = {"export_s": time.perf_counter() - t0,
+                      "poly": meta["poly"], "stored_on": meta["stored_on"],
+                      "graph_mb": (d / name / "graph.pt2").stat().st_size
+                      / 2**20}
+        if "poly_export_error" in meta:
+            rows[name]["poly_export_error"] = meta["poly_export_error"]
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", AOT_CHILD, str(d),
+                          *engines], cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"aot_export child failed:\n{res.stderr[-4000:]}")
+    child = json.loads(res.stdout.strip().splitlines()[-1])
+    ok = True
+    for name, (inp, dtype, n) in engines.items():
+        row = rows[name]
+        row["load_s"] = child[name]["load_s"]
+        tol = BF16_RTOL if dtype == torch.bfloat16 else MAIN_ATOL
+        for B, x in batches.items():
+            run = child[name]["runs"][str(B)]
+            live = inp.batch(*x)
+            got = dict(np.load(d / f"{name}_{B}.npz"))
+            err, labels = _aot_gap(torch, got, live, dtype)
+            dev = [torch.as_tensor(a, device="cuda") for a in x]
+            live_s = _timed_batches(torch, inp, dev)
+            audio_s = B * got["inpainted"].shape[1] / 22050.0
+            good = (run["launches"] == n and err <= tol and labels
+                    and np.isfinite(got["inpainted"]).all())
+            ok &= bool(good)
+            row[f"B{B}"] = {
+                "launches": run["launches"], "expected_launches": n,
+                "vs_live": err, "tolerance": tol, "labels_equal": labels,
+                "artifact_batch_ms": 1e3 * run["batch_s"],
+                "live_batch_ms": 1e3 * live_s,
+                "artifact_audio_seconds_per_second": audio_s / run["batch_s"],
+                "live_audio_seconds_per_second": audio_s / live_s,
+                "ok": bool(good)}
+        emit({"phase": "aot_export", "artifact": name, **row})
+    emit({"phase": "aot_export_child", "seconds": child_s,
+          "note": "one process: imports, three loads, the runs"})
+    if not ok or not all(r["poly"] for r in rows.values()):
+        raise AssertionError("aot_export: the artifact and the live "
+                             "inpainter disagree, or the export is static")
+    return {"launches": {name: rows[name][f"B{AOT_BATCHES[0]}"]["launches"]
+                         for name in rows}}
+
+
+def phase_export_aot_cli(torch, main_setup, d: Path) -> dict:
+    """`export_aot.main` on the card, as a user runs it, on files written
+    as `cli` writes them (a HuBERT-base `CustomModel` state dict, the V1
+    `g_*` file and the .npy codebook of the main path's weights), 1 s
+    utterances, `--platforms cuda,cpu` (stored on the CPU, moved to the
+    card at load): its artifact equal to a direct `save_serving_artifact`
+    of the same inpainter on the card at B = 2 (atol 1e-6, labels equal),
+    within MAIN_ATOL of the live batch, 72 K1 launches per batch; the same
+    artifact loaded on the CPU within CPU_ATOL of the card at B = 1."""
+    import argparse
+    from speech_inpainting_torch.cli import export_aot, predict_ea
+    from speech_inpainting_torch.infer.aot import (load_serving_artifact,
+                                                   save_serving_artifact)
+    from speech_inpainting_torch.ops.resblock import fused_resblock1
+    from speech_inpainting_torch.testing import (custom_model_state_dict,
+                                                 generator_state_dict,
+                                                 synthetic_batch)
+    cfg, hp, gp, centroids = main_setup
+    torch.save(custom_model_state_dict(hp, cfg.hubert), d / "best.pt")
+    torch.save({"generator": generator_state_dict(gp, cfg.hifigan)},
+               d / "g_00000001")
+    np.save(d / "km.npy", centroids)
+    files = {"hubert_checkpoint": str(d / "best.pt"), "hubert_type": "base",
+             "hifigan_checkpoint": str(d / "g_00000001"),
+             "hifigan_config": None, "kmeans": str(d / "km.npy"),
+             "device": "cuda"}
+    t0 = time.perf_counter()
+    meta = export_aot.main([
+        "--seconds", "1", "--hubert-checkpoint", files["hubert_checkpoint"],
+        "--hubert-type", "base", "--hifigan-checkpoint",
+        files["hifigan_checkpoint"], "--kmeans", files["kmeans"],
+        "--platforms", "cuda,cpu", "--out", str(d / "cli_art"),
+        "--device", "cuda"])
+    cli_s = time.perf_counter() - t0
+    inp = predict_ea.load_inpainter(argparse.Namespace(**files))
+    save_serving_artifact(d / "direct_art", inp, 22050, 16000,
+                          platforms=["cuda", "cpu"])
+    t0 = time.perf_counter()
+    art = load_serving_artifact(d / "cli_art")
+    load_s = time.perf_counter() - t0
+    direct = load_serving_artifact(d / "direct_art")
+    x = synthetic_batch(np.random.default_rng(SEED + 90), 2, 1.0,
+                        mask_frames=5)
+    fused_resblock1.launches = 0
+    got = art.batch(*x)
+    torch.cuda.synchronize()
+    launches = fused_resblock1.launches
+    want, live = direct.batch(*x), inp.batch(*x)
+    vs_direct = (got["inpainted"] - want["inpainted"]).abs().max().item()
+    vs_live = (got["inpainted"] - live["inpainted"]).abs().max().item()
+    labels = bool(torch.equal(got["pred_labels"], want["pred_labels"])
+                  and torch.equal(got["pred_labels"], live["pred_labels"]))
+    del art, direct
+    t0 = time.perf_counter()
+    on_cpu = load_serving_artifact(d / "cli_art", device="cpu")
+    cpu_load_s = time.perf_counter() - t0
+    one = [a[:1] for a in x]
+    c = on_cpu.batch(*one)
+    cpu_gap = (c["inpainted"] - got["inpainted"][:1].cpu()).abs().max(
+        ).item()
+    cpu_labels = bool(torch.equal(c["pred_labels"],
+                                  got["pred_labels"][:1].cpu()))
+    ok = (meta["poly"] and meta["stored_on"] == "cpu" and launches == 72
+          and vs_direct <= 1e-6 and vs_live <= MAIN_ATOL and labels
+          and cpu_gap <= CPU_ATOL and cpu_labels)
+    emit({"phase": "export_aot_cli", "meta": meta, "cli_seconds": cli_s,
+          "load_cuda_seconds": load_s, "load_cpu_seconds": cpu_load_s,
+          "launches": launches, "expected_launches": 72,
+          "vs_direct_export_max_abs": vs_direct, "vs_live_max_abs": vs_live,
+          "tolerance": MAIN_ATOL, "labels_equal": labels,
+          "cpu_vs_card_max_abs": cpu_gap, "cpu_tolerance": CPU_ATOL,
+          "cpu_labels_equal": cpu_labels, "ok": ok})
+    if not ok:
+        raise AssertionError("export_aot CLI check failed")
+    return {"launches": launches}
+
+
+def phase_int8_hubert(torch, main_setup) -> dict:
+    """The int8 serving option at HuBERT-base's full width (+ head, the
+    main path's weights), B = 4 × 4 s: int8 against f32 by tests/
+    test_int8.py's relative norm error (INT8_RTOL), int8 in bf16 the same;
+    the card against the CPU on a 0.5 s input (reported, held to
+    INT8_RTOL); `dynamic_int8_dot` card against CPU at one padded shape
+    and at the FFN's (rtol 1e-6: the same codes, exact int32 sums, the same
+    float32 rescale); ms per forward, int8 beside f32 and bf16, in
+    turns."""
+    import dataclasses as dc
+    from speech_inpainting_torch.convert.from_jax import hubert_from_jax
+    from speech_inpainting_torch.device import full_f32
+    from speech_inpainting_torch.ops.int8 import dynamic_int8_dot
+    from speech_inpainting_torch.testing import synthetic_batch
+    cfg, hp, _, _ = main_setup
+    base = cfg.hubert
+    rng = np.random.default_rng(SEED + 100)
+    wav = torch.as_tensor(synthetic_batch(rng, 4, 4.0)[1], device="cuda")
+    models = {name: hubert_from_jax(dc.replace(base, **over), hp, 80)
+              for name, over in (
+                  ("float32", {}), ("bfloat16", {"dtype": torch.bfloat16}),
+                  ("int8", {"int8": True}),
+                  ("int8_bfloat16", {"int8": True,
+                                     "dtype": torch.bfloat16}))}
+    rel = lambda a, b: (torch.linalg.norm(a.float() - b.float())
+                        / torch.linalg.norm(b.float())).item()
+    with torch.inference_mode(), full_f32():
+        out = {name: m(wav).float() for name, m in models.items()}
+        gaps = {name: rel(out[name], out["float32"])
+                for name in ("bfloat16", "int8", "int8_bfloat16")}
+        order = ("float32", "bfloat16", "int8", "int8_bfloat16")
+        t = {name: [] for name in order}
+        for name in order + order[::-1]:
+            t[name].append(cuda_ms(lambda: models[name](wav), 3))
+        ms = {name: sum(v) / 2 for name, v in t.items()}
+        short = torch.as_tensor(_short_inputs()[1])
+        cpu = hubert_from_jax(dc.replace(base, int8=True), hp, 80,
+                              device="cpu")
+        card_cpu = rel(models["int8"](short.cuda()).cpu(), cpu(short))
+        dots = {}
+        for M, K, N in ((5, 20, 12), (4 * 199, 768, 3072)):
+            x = rng.standard_normal((M, K)).astype(np.float32)
+            w = rng.standard_normal((K, N)).astype(np.float32)
+            a = dynamic_int8_dot(torch.tensor(x, device="cuda"),
+                                 torch.tensor(w, device="cuda")).cpu()
+            b = dynamic_int8_dot(torch.tensor(x), torch.tensor(w))
+            dots[f"{M}x{K}x{N}"] = ((a - b).abs() / b.abs().clamp(
+                min=1e-30)).max().item()
+    ok = (gaps["int8"] < INT8_RTOL and gaps["int8_bfloat16"] < INT8_RTOL
+          and card_cpu < INT8_RTOL and max(dots.values()) <= 1e-6
+          and all(bool(torch.isfinite(v).all()) for v in out.values()))
+    emit({"phase": "int8_hubert", "B": 4, "seconds": 4.0,
+          "rel_vs_f32": gaps, "tolerance": INT8_RTOL,
+          "card_vs_cpu_rel_int8_0_5s": card_cpu,
+          "int8_dot_card_vs_cpu_max_rel": dots, "ms_per_forward": ms,
+          "ok": ok})
+    if not ok:
+        raise AssertionError("int8 HuBERT check failed")
+    return {"ms": ms, "gaps": gaps}
 
 
 # ------------------------------------------ the I_da paths as users run them
@@ -4502,8 +4864,13 @@ def main() -> int:
     cli = phase_cli(torch, large)
     large_launches = large["launches"]
     del large
-    ida_cli = phase_ida_cli(torch, ida)
     import tempfile
+    with tempfile.TemporaryDirectory() as aot_dir:
+        aot = phase_aot_export(torch, path["setup"], Path(aot_dir))
+    with tempfile.TemporaryDirectory() as aot_dir:
+        aot_cli = phase_export_aot_cli(torch, path["setup"], Path(aot_dir))
+    phase_int8_hubert(torch, path["setup"])
+    ida_cli = phase_ida_cli(torch, ida)
     with tempfile.TemporaryDirectory() as eval_dir:
         ev = phase_evaluate_sweep(torch, path["setup"], covered,
                                   Path(eval_dir))
@@ -4571,7 +4938,12 @@ def main() -> int:
             "cli_predict_ea": cli["launches"],
             "train_ea_cli_predict_ea_from_last": tcli["launches"],
             "predict_ea_from_trained_g": gcli["predict_ea_k1_launches"],
-            "evaluate_sweep_3_lengths_x_8_positions": ev["launches"]},
+            "evaluate_sweep_3_lengths_x_8_positions": ev["launches"],
+            "aot_artifact_v1_f32_per_batch": aot["launches"]["v1_float32"],
+            "aot_artifact_v1_bf16_per_batch":
+                aot["launches"]["v1_bfloat16"],
+            "aot_artifact_istft_per_batch": aot["launches"]["istft_float32"],
+            "export_aot_cli_artifact_per_batch": aot_cli["launches"]},
         # the worst over the checks: V1's 12 (C, K) shapes at B=2,
         # T=2049, the main path's 12 shapes at B=4, the edge shapes, and
         # the sweep's B = 8 tiles no earlier check reached
@@ -4591,6 +4963,12 @@ def main() -> int:
         # FMA figure (67 TFLOP/s outside them) beside it
         "f32_bound_ms": timed["float32"]["bound_ms"],
         "f32_bound_fma_ms": timed["float32"]["bound_fma_ms"],
+        # the `torch.ops.si.resblock1` route (FastGenerator's, eager and
+        # exported) beside the direct call: per forward, and host µs per
+        # call at ROUTE_SHAPE
+        "op_ms": t["op_ms"], "f32_op_ms": timed["float32"]["op_ms"],
+        "route_us": {"bfloat16": t["route"],
+                     "float32": timed["float32"]["route"]},
         "ms_by_C": {C: v["ms"] for C, v in t["by_C"].items()},
         "f32_ms_by_C": {C: v["ms"] for C, v in
                         timed["float32"]["by_C"].items()}}, {
@@ -4648,6 +5026,11 @@ def main() -> int:
         "f32_library_ms": ida_timed["float32"]["library_ms"],
         "f32_bound_ms": ida_timed["float32"]["bound_ms"],
         "f32_bound_fma_ms": ida_timed["float32"]["bound_fma_ms"],
+        # `torch.ops.si.resblock_step` (the route of an exported plain
+        # Generator; eager calls stay direct) beside the direct call
+        "op_ms": t2["op_ms"], "f32_op_ms": ida_timed["float32"]["op_ms"],
+        "route_us": {"bfloat16": t2["route"],
+                     "float32": ida_timed["float32"]["route"]},
         "ms_by_C": {C: v["ms"] for C, v in t2["by_C"].items()},
         "f32_ms_by_C": {C: v["ms"] for C, v in
                         ida_timed["float32"]["by_C"].items()}}]})

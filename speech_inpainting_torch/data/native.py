@@ -1,18 +1,20 @@
 """ctypes bindings for the repository's native speechio library
-(native/speechio.cc): its wav and FLAC decoders, for data/audio.py's
-`load_flac`.
+(native/speechio.cc): its wav and FLAC decoders (for data/audio.py's
+`load_flac`), its Kaiser polyphase resampler (`resample`) and its threaded
+batch of random crops (`batch_crops`: decode, resample, peak-normalise and
+crop in C++, the reference's DataLoader workers' host loop).
 
-The port's own copy of the decoding part of
-speech_inpainting_tpu/data/native.py (the library is the repository's, not
-the JAX package's). `build()` compiles it on demand with the repository's
-Makefile (`make -C native`); `available()` is False where that fails.
+The port's own copy of speech_inpainting_tpu/data/native.py (the library
+is the repository's, not the JAX package's). `build()` compiles it on
+demand with the repository's Makefile (`make -C native`); `available()` is
+False where that fails.
 """
 from __future__ import annotations
 
 import ctypes
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -52,6 +54,17 @@ def _load() -> Optional[ctypes.CDLL]:
                                 ctypes.POINTER(ctypes.c_float),
                                 ctypes.c_int64,
                                 ctypes.POINTER(ctypes.c_int64)]
+    lib.si_resample.argtypes = [ctypes.POINTER(ctypes.c_float),
+                                ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                ctypes.POINTER(ctypes.c_float),
+                                ctypes.c_int64,
+                                ctypes.POINTER(ctypes.c_int64)]
+    lib.si_batch_crops.argtypes = [ctypes.POINTER(ctypes.c_char_p),
+                                   ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_float,
+                                   ctypes.POINTER(ctypes.c_int64),
+                                   ctypes.c_int64,
+                                   ctypes.POINTER(ctypes.c_float)]
     _lib = lib
     return lib
 
@@ -109,3 +122,37 @@ def load_wav(path, target_sr: Optional[int] = None):
         if rc != 0:
             raise IOError(f"si_load_wav({path}) -> {rc}")
         return out[:n.value].copy(), tsr
+
+
+def resample(wav: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
+    """wav (T,) at `sr` → float32 at `target_sr` (Kaiser polyphase)."""
+    lib = _load()
+    wav = np.ascontiguousarray(wav, np.float32)
+    cap = int(len(wav) * max(1.0, target_sr / sr) + 16)
+    out = np.empty(cap, np.float32)
+    n = ctypes.c_int64()
+    rc = lib.si_resample(_fp(wav), len(wav), sr, target_sr, _fp(out), cap,
+                         ctypes.byref(n))
+    if rc != 0:
+        raise IOError(f"si_resample -> {rc}")
+    return out[:n.value].copy()
+
+
+def batch_crops(paths: Sequence, starts: Sequence[int], crop_len: int,
+                *, target_sr: int = 0, normalize_level: float = 0.95
+                ) -> np.ndarray:
+    """(n, crop_len) float32: each file decoded, resampled to `target_sr`
+    (0 keeps its rate), peak-normalised to `normalize_level` and cropped
+    from its start, on the library's threads."""
+    lib = _load()
+    n = len(paths)
+    out = np.empty((n, crop_len), np.float32)
+    arr = (ctypes.c_char_p * n)(*[str(p).encode() for p in paths])
+    st = np.ascontiguousarray(np.asarray(starts, np.int64))
+    rc = lib.si_batch_crops(
+        arr, n, target_sr, normalize_level,
+        st.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        crop_len, _fp(out))
+    if rc != 0:
+        raise IOError(f"si_batch_crops -> {rc}")
+    return out

@@ -13,6 +13,9 @@ Conventions (those of speech_inpainting_tpu/infer/inpaint.py):
     HuBERT's 20 ms grid;
   - linear 441 → 256 regrid (extend_mel) before the generator.
 
+The path from the staged inputs on is one module, `InpaintGraph`, which
+`InformedInpainter.batch` calls and infer/aot.py exports.
+
 Beside the main path, the reference's other artifacts: `batch_expected`
 (the true centroid frames spliced in, the decoder-only upper bound) and
 `hifi_masked` (the masked mel vocoded as it is).
@@ -22,9 +25,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch import nn
 
 from ..convert.from_jax import generator_from_jax, hubert_from_jax
-from ..device import full_f32, resolve_device
+from ..device import full_f32, resolve_device, stage
 from ..models.hifigan import HiFiGANConfig
 from ..models.hubert import HubertConfig
 from ..ops.masking import frame_mask, mask_span, mask_wave_frames
@@ -72,16 +76,47 @@ def _splice(mel, frames_btd, mask_pos, mask_len):
     return torch.where(m[:, None, :], frames_btd.transpose(1, 2), mel)
 
 
-def _stage(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """x (an array, a list or a tensor) as a `dtype` tensor on `device`. A
-    host array bound for the card goes through pinned memory by a
-    non-blocking copy on the current stream, so the caller is not held
-    until the card has taken it (a pageable copy would wait for the
-    stream)."""
-    t = torch.as_tensor(x, dtype=dtype)
-    if device.type == "cuda" and t.device.type == "cpu":
-        t = t.pin_memory()
-    return t.to(device, non_blocking=True)
+class InpaintGraph(nn.Module):
+    """The body of `InformedInpainter.batch` as one module, which the live
+    inpainter calls and `infer/aot.py` exports, so that the two cannot
+    drift apart. Submodules: `hubert` (EncoderWithHead) and `generator`;
+    buffers: the centred codebook `C_centered` (K, 80), its rows normalised
+    `cn` and the codebook mean `center` (80,).
+
+    forward(wav22 (B, T22) f32, wav16 (B, T16) f32, mask_pos, mask_len (B,)
+    int64, in 20 ms frames) → inpainted (B, T), mel_masked and
+    mel_inpainted (B, 80, F), pred_labels (B, frames)."""
+
+    def __init__(self, hubert: nn.Module, generator: nn.Module,
+                 centroids: torch.Tensor, normalize_16k: bool = True):
+        super().__init__()
+        self.hubert = hubert
+        self.generator = generator
+        self.normalize_16k = normalize_16k
+        center = centroids.mean(dim=0)
+        cc = centroids - center[None, :]
+        self.register_buffer("center", center)
+        self.register_buffer("C_centered", cc)
+        self.register_buffer("cn", cc / cc.norm(dim=-1, keepdim=True).clamp(
+            min=1e-8))
+
+    def forward(self, wav22, wav16, mask_pos, mask_len) -> dict:
+        mel = _masked_mel22(wav22, mask_pos, mask_len)        # (B, 80, F)
+
+        masked16 = mask_wave_frames(wav16, mask_pos, mask_len)
+        if self.normalize_16k:
+            masked16 = meanvar_normalize(masked16)
+        emb = self.hubert(masked16).float()                   # (B, T, 80)
+
+        # nearest centroid by centred cosine similarity
+        en = emb / emb.norm(dim=-1, keepdim=True).clamp(min=1e-8)
+        pred_labels = torch.argmax(en @ self.cn.t(), dim=-1)  # (B, T)
+        pred_mels = self.C_centered[pred_labels] + self.center
+
+        inpainted_mel = _splice(mel, pred_mels, mask_pos, mask_len)
+        wav = self.generator(extend_mel(inpainted_mel))
+        return dict(inpainted=wav[:, 0], mel_masked=mel,
+                    mel_inpainted=inpainted_mel, pred_labels=pred_labels)
 
 
 class InformedInpainter:
@@ -116,24 +151,28 @@ class InformedInpainter:
             if (tree is None) == (module is None):
                 raise ValueError(f"pass either {name}_params or the loaded "
                                  f"`{name}=` module, not both or neither")
-        self.hubert = (hubert.to(self.device) if hubert is not None
-                       else hubert_from_jax(cfg.hubert, hubert_params,
-                                            out_dim=C.shape[-1],
-                                            device=self.device))
-        self.generator = (generator.to(self.device) if generator is not None
-                          else generator_from_jax(cfg.hifigan,
-                                                  generator_params,
-                                                  device=self.device))
-        self._center = C.mean(dim=0)
-        self._C_centered = C - self._center[None, :]
-        self._cn = self._C_centered / self._C_centered.norm(
-            dim=-1, keepdim=True).clamp(min=1e-8)
+        self.graph = InpaintGraph(
+            hubert.to(self.device) if hubert is not None
+            else hubert_from_jax(cfg.hubert, hubert_params,
+                                 out_dim=C.shape[-1], device=self.device),
+            generator.to(self.device) if generator is not None
+            else generator_from_jax(cfg.hifigan, generator_params,
+                                    device=self.device),
+            C, cfg.normalize_16k)
+
+    @property
+    def hubert(self) -> nn.Module:
+        return self.graph.hubert
+
+    @property
+    def generator(self) -> nn.Module:
+        return self.graph.generator
 
     def _inputs(self, wav22, mask_pos, mask_len):
         dev = self.device
-        return (_stage(wav22, torch.float32, dev),
-                _stage(mask_pos, torch.int64, dev),
-                _stage(mask_len, torch.int64, dev))
+        return (stage(wav22, torch.float32, dev),
+                stage(mask_pos, torch.int64, dev),
+                stage(mask_len, torch.int64, dev))
 
     @torch.inference_mode()
     @full_f32()
@@ -143,23 +182,8 @@ class InformedInpainter:
         (B, 80, F), pred_labels (B, frames). Float32 work runs in full
         float32 whatever the caller's TF32 flags (`device.full_f32`)."""
         wav22, mask_pos, mask_len = self._inputs(wav22, mask_pos, mask_len)
-        wav16 = _stage(wav16, torch.float32, self.device)
-        mel = _masked_mel22(wav22, mask_pos, mask_len)        # (B, 80, F)
-
-        masked16 = mask_wave_frames(wav16, mask_pos, mask_len)
-        if self.cfg.normalize_16k:
-            masked16 = meanvar_normalize(masked16)
-        emb = self.hubert(masked16).float()                   # (B, T, 80)
-
-        # nearest centroid by centred cosine similarity
-        en = emb / emb.norm(dim=-1, keepdim=True).clamp(min=1e-8)
-        pred_labels = torch.argmax(en @ self._cn.t(), dim=-1)  # (B, T)
-        pred_mels = self._C_centered[pred_labels] + self._center
-
-        inpainted_mel = _splice(mel, pred_mels, mask_pos, mask_len)
-        wav = self.generator(extend_mel(inpainted_mel))
-        return dict(inpainted=wav[:, 0], mel_masked=mel,
-                    mel_inpainted=inpainted_mel, pred_labels=pred_labels)
+        wav16 = stage(wav16, torch.float32, self.device)
+        return self.graph(wav22, wav16, mask_pos, mask_len)
 
     @torch.inference_mode()
     @full_f32()
@@ -170,10 +194,11 @@ class InformedInpainter:
         masked span and vocoded. Returns expected_inpaint (B, T) and
         mel_expected (B, 80, F)."""
         wav22, mask_pos, mask_len = self._inputs(wav22, mask_pos, mask_len)
-        labels = _stage(target_labels, torch.int64, self.device)
+        labels = stage(target_labels, torch.int64, self.device)
         mel = _masked_mel22(wav22, mask_pos, mask_len)
-        exp_mel = _splice(mel, self._C_centered[labels] + self._center,
-                          mask_pos, mask_len)
+        g = self.graph
+        exp_mel = _splice(mel, g.C_centered[labels] + g.center, mask_pos,
+                          mask_len)
         wav = self.generator(extend_mel(exp_mel))
         return dict(expected_inpaint=wav[:, 0], mel_expected=exp_mel)
 

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import cast
 from ..ops.conv import avg_pool1d, get_padding
 from ..ops.resblock import resblock1_forward, resblock1_reference
 from .common import SNConv1d, WNConv1d, WNConv2d, WNConvTranspose1d
@@ -137,7 +138,7 @@ class Generator(nn.Module):
         fusion, then the leaky ReLU before conv_post."""
         cfg = self.cfg
         nk = len(cfg.resblock_kernel_sizes)
-        x = self.conv_pre(mel.to(self.conv_pre.weight.dtype))
+        x = self.conv_pre(cast(mel, self.conv_pre.weight.dtype))
         for i, up in enumerate(self.ups):
             x = up(F.leaky_relu(x, LRELU_SLOPE))
             xs = None

@@ -2,12 +2,18 @@
 
 Counterpart of speech_inpainting_tpu/models/hifigan_fast.py:FastGenerator:
 the generator of models/hifigan.py with every ResBlock1 of the
-multi-receptive-field fusion in one `fused_resblock1` call (K1, all of a
-block's residual steps) when the generator lies on the card.
+multi-receptive-field fusion in one K1 call (all of a block's residual
+steps) when the generator lies on the card. The call goes through the
+operator `torch.ops.si.resblock1` (ops/resblock.py), on the card and
+whenever `torch.export` traces, so that an exported program launches the
+same kernel; an eager call on the CPU runs the plain version, the
+operator's CPU implementation, directly.
 """
 from __future__ import annotations
 
-from ..ops.resblock import fused_resblock1, resblock1_reference
+import torch
+
+from ..ops.resblock import resblock1_reference
 from .hifigan import Generator
 
 
@@ -16,5 +22,8 @@ class FastGenerator(Generator):
     routes them to the plain version."""
 
     def resblock(self, x, p, dilations):
-        fn = fused_resblock1 if self.use_kernel else resblock1_reference
-        return fn(x, p["w1"], p["b1"], p["w2"], p["b2"], dilations)
+        args = (x, p["w1"], p["b1"], p["w2"], p["b2"], list(dilations))
+        if not self.use_kernel or (x.device.type == "cpu"
+                                   and not torch.compiler.is_compiling()):
+            return resblock1_reference(*args)
+        return torch.ops.si.resblock1(*args)

@@ -22,6 +22,10 @@ no-ops); a trainable model keeps float32 parameters, and its positional
 conv keeps weight norm's (g, v) apart (`weight_norm=True`), the weight
 computed from them per call.
 
+`cfg.int8` (serving only) runs the transformer's dense layers through
+int8 codes (ops/int8.py), with the same parameters.
+`extract_features_chunked` runs a long recording in pieces.
+
 `attention_mask` (B, samples), 1 on real samples, masks as flax does: the
 projected features past each utterance's frame count are zeroed before
 the positional conv, and padded keys are left out of every softmax.
@@ -33,9 +37,12 @@ import dataclasses
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..device import cast, full_f32, resolve_device, stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +62,10 @@ class HubertConfig:
     layer_norm_eps: float = 1e-5
     feat_proj_layer_norm: bool = True
     dtype: torch.dtype = torch.float32
+    # serving only: the transformer's dense layers (q/k/v/out, the MLP) as
+    # ops/int8.py's dynamic W8A8 `Int8Linear`, with the same parameters
+    # (dataclasses.replace(cfg, int8=True) on an existing config)
+    int8: bool = False
 
     @staticmethod
     def base(**over) -> "HubertConfig":
@@ -96,8 +107,9 @@ class HubertConfig:
 
 def _f32(dtype: torch.dtype) -> torch.dtype:
     """The type of the float32 parts: float32, or float64 for a float64
-    model (a reference computed wholly in float64)."""
-    return torch.promote_types(dtype, torch.float32)
+    model (a reference computed wholly in float64). Decided in Python:
+    `torch.promote_types` would be a node of an exported program."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 class LayerNorm32(nn.LayerNorm):
@@ -106,8 +118,9 @@ class LayerNorm32(nn.LayerNorm):
 
     def forward(self, x):
         dt = _f32(x.dtype)
-        return F.layer_norm(x.to(dt), self.normalized_shape,
-                            self.weight.to(dt), self.bias.to(dt), self.eps)
+        return F.layer_norm(cast(x, dt), self.normalized_shape,
+                            cast(self.weight, dt), cast(self.bias, dt),
+                            self.eps)
 
 
 class Dense(nn.Linear):
@@ -120,7 +133,17 @@ class Dense(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(cast(x, dt), cast(self.weight, dt),
+                        cast(self.bias, dt))
+
+
+def _dense(cfg: HubertConfig, n_in: int, n_out: int) -> Dense:
+    """A transformer dense layer: `Dense`, or its int8 form where cfg.int8
+    (the same parameters)."""
+    if cfg.int8:
+        from ..ops.int8 import Int8Linear
+        return Int8Linear(n_in, n_out, cfg.dtype)
+    return Dense(n_in, n_out, cfg.dtype)
 
 
 class FeatureEncoder(nn.Module):
@@ -146,18 +169,19 @@ class FeatureEncoder(nn.Module):
 
     def forward(self, wav):
         dt = self.compute_dtype
-        x = wav[:, None, :].to(dt)
+        x = cast(wav[:, None, :], dt)
         for i, conv in enumerate(self.convs):
-            x = F.conv1d(x, conv.weight.to(dt),
-                         None if conv.bias is None else conv.bias.to(dt),
+            x = F.conv1d(x, cast(conv.weight, dt),
+                         None if conv.bias is None else cast(conv.bias, dt),
                          stride=conv.stride)
             n = self.norms[f"norm_{i}"] if f"norm_{i}" in self.norms else None
             if self.layer_norms:  # over channels, in f32
-                x = n(x.transpose(1, 2)).transpose(1, 2).to(x.dtype)
+                x = cast(n(x.transpose(1, 2)).transpose(1, 2), x.dtype)
             elif n is not None:  # GroupNorm(C, C): per channel over time
                 f = _f32(x.dtype)
-                x = F.group_norm(x.to(f), n.num_groups, n.weight.to(f),
-                                 n.bias.to(f), n.eps).to(x.dtype)
+                x = cast(F.group_norm(cast(x, f), n.num_groups,
+                                      cast(n.weight, f), cast(n.bias, f),
+                                      n.eps), x.dtype)
             x = F.gelu(x)
         return x.transpose(1, 2)
 
@@ -182,8 +206,8 @@ class PositionalConvEmbedding(nn.Module):
 
     def forward(self, x):  # (B, T, H)
         dt, conv = self.compute_dtype, self.conv
-        out = F.conv1d(x.transpose(1, 2).to(dt), conv.weight.to(dt),
-                       conv.bias.to(dt), padding=conv.padding,
+        out = F.conv1d(cast(x.transpose(1, 2), dt), cast(conv.weight, dt),
+                       cast(conv.bias, dt), padding=conv.padding,
                        groups=conv.groups)
         if self.drop_last:
             out = out[:, :, :-1]
@@ -196,7 +220,7 @@ class SelfAttention(nn.Module):
         h = cfg.hidden_size
         self.num_heads = cfg.num_attention_heads
         self.q_proj, self.k_proj, self.v_proj, self.out_proj = (
-            Dense(h, h, cfg.dtype) for _ in range(4))
+            _dense(cfg, h, h) for _ in range(4))
 
     def forward(self, x, key_mask=None):
         """`key_mask` (B, 1, 1, T) bool, True on the keys to attend."""
@@ -211,10 +235,10 @@ class SelfAttention(nn.Module):
 class FeedForward(nn.Module):
     def __init__(self, cfg: HubertConfig):
         super().__init__()
-        self.intermediate_dense = Dense(cfg.hidden_size,
-                                        cfg.intermediate_size, cfg.dtype)
-        self.output_dense = Dense(cfg.intermediate_size, cfg.hidden_size,
-                                  cfg.dtype)
+        self.intermediate_dense = _dense(cfg, cfg.hidden_size,
+                                         cfg.intermediate_size)
+        self.output_dense = _dense(cfg, cfg.intermediate_size,
+                                   cfg.hidden_size)
 
     def forward(self, x):
         return self.output_dense(F.gelu(self.intermediate_dense(x)))
@@ -285,6 +309,35 @@ class HubertModel(nn.Module):
         if self.pre_ln and tap_layer is None:
             x = self.encoder_layer_norm(x)
         return x
+
+
+def extract_features_chunked(model: HubertModel, wav, *,
+                             tap_layer: int | None = None,
+                             chunk: int = 1_600_000, device=None):
+    """Frame features of audio of any length: `chunk`-sample pieces run
+    through `model` one at a time and concatenated, the reference feature
+    reader's long-audio strategy (I_da/src/hubert_feature_reader.py, 100 s
+    chunks; the joins are not smoothed there either). A piece too short
+    for one frame ends the loop.
+
+    wav (T,) array or tensor → (frames, hidden) float32 numpy array;
+    (0, hidden) where no piece makes a frame. Runs on `device` (the card
+    unless "cpu" is passed), where the model must lie, in full float32.
+    """
+    device = resolve_device(device)
+    with torch.inference_mode(), full_f32():
+        wav = torch.as_tensor(wav, dtype=torch.float32).reshape(-1)
+        outs = []
+        for start in range(0, wav.shape[0], chunk):
+            piece = wav[start:start + chunk]
+            if model.cfg.feature_lengths(piece.shape[0]) < 1:
+                break
+            feats = model(stage(piece[None], torch.float32, device),
+                          tap_layer=tap_layer)
+            outs.append(feats[0].float().cpu().numpy())
+    if not outs:
+        return np.zeros((0, model.cfg.hidden_size), np.float32)
+    return np.concatenate(outs, axis=0)
 
 
 class PredictionHead(nn.Module):

@@ -38,3 +38,19 @@ def frame_mask(num_frames: int, mask_pos, mask_len,
                device: torch.device | str = "cpu") -> torch.Tensor:
     """Boolean (..., num_frames) mask, True inside [pos, pos+len)."""
     return _span(num_frames, mask_pos, mask_len, device)
+
+
+def mask_wave_samples(wave: torch.Tensor, start_sample, num_samples):
+    """Zero an arbitrary sample span [start, start + num) (the 22.05 kHz
+    predict path, the I_da path)."""
+    return mask_span(wave, start_sample, num_samples)
+
+
+def splice_frames(base: torch.Tensor, replacement: torch.Tensor, mask_pos,
+                  mask_len) -> torch.Tensor:
+    """base (..., frames) with its frames [pos, pos + len) taken from the
+    same positions of `replacement`, which has base's shape: the
+    reference's centroid splice into the masked mel region
+    (I_ea/predict.py:184-189)."""
+    m = frame_mask(base.shape[-1], mask_pos, mask_len, base.device)
+    return torch.where(m, replacement, base)

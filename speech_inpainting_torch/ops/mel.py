@@ -23,6 +23,7 @@ import functools
 import numpy as np
 import torch
 
+from ..device import cast, tensor_cache
 from .stft import stft_magnitude
 
 
@@ -90,7 +91,7 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float,
     return weights.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=16)
+@tensor_cache(maxsize=16)
 @torch.inference_mode(False)   # a normal tensor: training's mel saves it
 def _mel_basis(sr: int, n_fft: int, n_mels: int, fmin: float,
                fmax: float | None, device: torch.device) -> torch.Tensor:
@@ -102,6 +103,13 @@ def dynamic_range_compression(x: torch.Tensor, C: float = 1.0,
                               clip_val: float = 1e-5) -> torch.Tensor:
     """log(clamp(x, clip_val) · C), the reference's spectral_normalize."""
     return torch.log(torch.clamp(x, min=clip_val) * C)
+
+
+def dynamic_range_decompression(x: torch.Tensor,
+                                C: float = 1.0) -> torch.Tensor:
+    """exp(x) / C, the inverse of `dynamic_range_compression` above the
+    clip."""
+    return torch.exp(x) / C
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,6 +145,6 @@ def mel_spectrogram(y: torch.Tensor,
     (n_mels, frames): one GEMM for the DFT, one for the mel projection."""
     mag = stft_magnitude(y, n_fft=cfg.n_fft, hop=cfg.hop_size,
                          win_size=cfg.win_size, pad=cfg.padding)
-    basis = _mel_basis(cfg.sampling_rate, cfg.n_fft, cfg.num_mels, cfg.fmin,
-                       cfg.fmax, mag.device).to(mag.dtype)
+    basis = cast(_mel_basis(cfg.sampling_rate, cfg.n_fft, cfg.num_mels,
+                            cfg.fmin, cfg.fmax, mag.device), mag.dtype)
     return dynamic_range_compression(basis @ mag)

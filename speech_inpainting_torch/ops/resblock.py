@@ -15,6 +15,20 @@ as `_plan` says; the source note gives the design and what bounds it. On a
 CPU tensor they run `resblock1_reference` and `resblock_step_reference`, the
 unfused chains of F.leaky_relu and F.conv1d that the kernels are held
 against.
+
+Both kernels are also operators of the `si` namespace of `torch.library`,
+`torch.ops.si.resblock1` and `torch.ops.si.resblock_step`, so that
+`torch.export` can trace a model through them (a `ctypes` call on
+`data_ptr()`s cannot be traced) and an exported program launches the same
+kernels: the CUDA implementation is the launcher above (with its checks and
+launch count), the CPU one the plain version, the fake one `empty_like(x)`.
+They are registered with `torch.library.Library`, whose per-call cost is
+the dispatcher's alone (the `custom_op` decorator adds a Python layer that
+costs several times more per call). models/hifigan_fast.py's K1 call goes
+through the operator on the card, eager and exported alike;
+`resblock1_forward` calls K2's launcher directly in eager mode, where its
+90 calls per I_da vocoder call are paced by the host, and the operator
+while a graph is traced.
 """
 from __future__ import annotations
 
@@ -185,6 +199,11 @@ def fused_resblock1(x, w1, b1, w2, b2, dilations=(1, 3, 5)):
         return resblock1_reference(x, w1, b1, w2, b2, dilations)
     if x.device.type != "cuda":
         raise ValueError(f"fused_resblock1: no kernel for device {x.device}")
+    return _launch_resblock1(x, w1, b1, w2, b2, dilations)
+
+
+def _launch_resblock1(x, w1, b1, w2, b2, dilations):
+    """K1 on the card: checks, plan, launch and count."""
     B, C, T = x.shape
     S, _, _, K = w1.shape
     if len(dilations) != S:
@@ -223,6 +242,11 @@ def fused_resblock_step(x, w1, b1, w2, b2, dilation=1):
     if x.device.type != "cuda":
         raise ValueError(
             f"fused_resblock_step: no kernel for device {x.device}")
+    return _launch_resblock_step(x, w1, b1, w2, b2, dilation)
+
+
+def _launch_resblock_step(x, w1, b1, w2, b2, dilation):
+    """K2 on the card: checks, plan, launch and count."""
     B, C, T = x.shape
     K = w1.shape[-1]
     if int(dilation) < 1:
@@ -248,13 +272,38 @@ def fused_resblock_step(x, w1, b1, w2, b2, dilation=1):
 fused_resblock_step.launches = 0
 
 
+# the operators: the launchers on the card, the plain versions on the CPU
+_LIB = torch.library.Library("si", "DEF")
+_LIB.define("resblock1(Tensor x, Tensor w1, Tensor b1, Tensor w2, "
+            "Tensor b2, int[] dilations) -> Tensor")
+_LIB.define("resblock_step(Tensor x, Tensor w1, Tensor b1, Tensor w2, "
+            "Tensor b2, int dilation) -> Tensor")
+_LIB.impl("resblock1", _launch_resblock1, "CUDA")
+_LIB.impl("resblock1", resblock1_reference, "CPU")
+_LIB.impl("resblock_step", _launch_resblock_step, "CUDA")
+_LIB.impl("resblock_step", resblock_step_reference, "CPU")
+
+
+@torch.library.register_fake("si::resblock1")
+def _resblock1_fake(x, w1, b1, w2, b2, dilations):
+    return torch.empty_like(x)
+
+
+@torch.library.register_fake("si::resblock_step")
+def _resblock_step_fake(x, w1, b1, w2, b2, dilation):
+    return torch.empty_like(x)
+
+
 def resblock1_forward(x, block, dilations=(1, 3, 5)):
     """A whole ResBlock1 as one K2 call per dilation, the JAX package's
     `resblock1_forward`. `block` maps w1, w2 to (S, C, C, K) and b1, b2 to
     (S, C). Weight norm is already folded: convert/from_jax.py folds it once
     at load, where the JAX function folds the flax (v, g) tree on every
-    call."""
+    call. Each step calls `fused_resblock_step`, or the operator
+    `torch.ops.si.resblock_step` while `torch.export` traces."""
+    step = (torch.ops.si.resblock_step if torch.compiler.is_compiling()
+            else fused_resblock_step)
     for s, d in enumerate(dilations):
-        x = fused_resblock_step(x, block["w1"][s], block["b1"][s],
-                                block["w2"][s], block["b2"][s], d)
+        x = step(x, block["w1"][s], block["b1"][s], block["w2"][s],
+                 block["b2"][s], int(d))
     return x

@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from ..device import cast
+
 
 def interp_linear(x: torch.Tensor, out_len: int, *,
                   scale: float | None = None) -> torch.Tensor:
@@ -26,7 +28,7 @@ def interp_linear(x: torch.Tensor, out_len: int, *,
     pos = pos.clamp(0.0, in_len - 1)
     lo = pos.floor().to(torch.int64)
     hi = (lo + 1).clamp(max=in_len - 1)
-    w = (pos - lo.to(torch.float32)).to(x.dtype)
+    w = cast(pos - lo.to(torch.float32), x.dtype)
     return x[..., lo] * (1 - w) + x[..., hi] * w
 
 

@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import cast, tensor_cache
+
 
 @functools.lru_cache(maxsize=16)
 def _dft_kernel_np(n_fft: int, win_size: int) -> np.ndarray:
@@ -31,7 +33,7 @@ def _dft_kernel_np(n_fft: int, win_size: int) -> np.ndarray:
     return basis[:, None, :].astype(np.float32)
 
 
-@functools.lru_cache(maxsize=16)
+@tensor_cache(maxsize=16)
 @torch.inference_mode(False)
 def _dft_basis(n_fft: int, win_size: int, device: torch.device) -> torch.Tensor:
     """(n_fft, 2·n_freq) float32 basis on `device`, made once per device,
@@ -53,7 +55,7 @@ def _frames_spec(y: torch.Tensor, n_fft: int, hop: int, win_size: int,
     if pad > 0:
         y = F.pad(y[:, None, :], (pad, pad), mode="reflect")[:, 0]
     frames = y.unfold(-1, n_fft, hop)                      # (B, F, n_fft)
-    return frames @ _dft_basis(n_fft, win_size, y.device).to(y.dtype)
+    return frames @ cast(_dft_basis(n_fft, win_size, y.device), y.dtype)
 
 
 def stft_magnitude(y: torch.Tensor, *, n_fft: int, hop: int, win_size: int,
@@ -100,7 +102,7 @@ def _idft_kernel_np(n_fft: int) -> np.ndarray:
     return basis.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 @torch.inference_mode(False)
 def _istft_consts(n_fft: int, hop: int, frames: int, device: torch.device,
                   dtype: torch.dtype):

@@ -26,7 +26,10 @@ def _port_modules():
 
 def test_every_module_imports_with_jax_blocked():
     assert {"speech_inpainting_torch.train.da",
-            "speech_inpainting_torch.cli.train_da"} <= set(_port_modules())
+            "speech_inpainting_torch.cli.train_da",
+            "speech_inpainting_torch.infer.aot",
+            "speech_inpainting_torch.cli.export_aot",
+            "speech_inpainting_torch.ops.int8"} <= set(_port_modules())
     blocked = "".join(f"sys.modules[{b!r}] = None\n" for b in BANNED)
     code = (f"import sys\n{blocked}import importlib, pickle\n"
             f"for m in {_port_modules()!r}:\n"
@@ -149,6 +152,12 @@ def test_entry_points_refuse_the_cpu_unasked():
     from speech_inpainting_torch.data.code_dataset import (
         torchscript_embedder)
     from speech_inpainting_torch.metrics.asr import WhisperScorer
+    from speech_inpainting_torch.cli import export_aot
+    from speech_inpainting_torch.infer.aot import (export_serving_graph,
+                                                   load_serving_artifact,
+                                                   save_serving_artifact)
+    from speech_inpainting_torch.models.hubert import (
+        extract_features_chunked)
     assert resolve_device("cpu").type == "cpu"
     cg = CodeGeneratorConfig(HiFiGANConfig(), use_f0=False)
     for call in (lambda: resolve_device(),
@@ -211,7 +220,14 @@ def test_entry_points_refuse_the_cpu_unasked():
                  lambda: predict_asr.main([
                      "--input", "m", "--mask", "0.2:0.4", "--donor", "d",
                      "--config", "c", "--codegen-checkpoint", "g",
-                     "--hubert", "h", "--kmeans", "k", "--out", "o"])):
+                     "--hubert", "h", "--kmeans", "k", "--out", "o"]),
+                 lambda: export_serving_graph(None, 22050, 16000),
+                 lambda: save_serving_artifact("a", None, 22050, 16000),
+                 lambda: load_serving_artifact("a"),
+                 lambda: extract_features_chunked(None, np.zeros(400)),
+                 lambda: export_aot.main([
+                     "--hubert-checkpoint", "h", "--hifigan-checkpoint",
+                     "g", "--kmeans", "k", "--out", "o"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
@@ -253,7 +269,10 @@ def test_full_f32_pins_and_restores_the_tf32_flags(caller):
 def test_entry_points_run_in_full_f32(monkeypatch):
     """Each entry point runs its body under `full_f32`: the flags seen
     inside are off though the caller left TF32 on."""
-    from speech_inpainting_torch.infer import ida_inpaint, inpaint, resynth
+    from speech_inpainting_torch.infer import (aot, ida_inpaint, inpaint,
+                                               resynth)
+    from speech_inpainting_torch.models.hubert import (
+        extract_features_chunked)
     cudnn = torch.backends.cudnn
     seen = []
 
@@ -268,7 +287,8 @@ def test_entry_points_run_in_full_f32(monkeypatch):
              ([0.0], [0], [0], [0])),
             (inpaint.InformedInpainter, "_hifi_masked", ([0.0], [0], [0])),
             (ida_inpaint.IdaInpainter, "inpaint", ([0.0], 0, 1)),
-            (resynth.Resynthesizer, "__call__", ([[0]],))):
+            (resynth.Resynthesizer, "__call__", ([[0]],)),
+            (aot.ServingArtifact, "batch", ([0.0], [0.0], [0], [0]))):
         obj = object.__new__(cls)
         obj.device = torch.device("cpu")
         monkeypatch.setattr(torch, "as_tensor", spy)
@@ -277,4 +297,9 @@ def test_entry_points_run_in_full_f32(monkeypatch):
         monkeypatch.undo()
         monkeypatch.setattr(cudnn, "allow_tf32", True)
         assert cudnn.allow_tf32
-    assert seen == [False] * 5
+    # and the functions that are entry points
+    monkeypatch.setattr(torch, "as_tensor", spy)
+    with pytest.raises(RuntimeError, match="stop"):
+        extract_features_chunked(None, [0.0], device="cpu")
+    monkeypatch.undo()
+    assert seen == [False] * 7
