@@ -89,6 +89,11 @@ it stopped); any failure raises and exits non-zero:
                 engine), waveforms against the live batch (f32 atol 1e-4,
                 bf16 rel 3e-2), labels equal; export, load and batch times
                 beside the live batch's, ms and audio-s/s;
+  aot_plain_generator  the same f32 artifact with the plain `Generator`
+                (models/hifigan.py) as the override, whose traced
+                ResBlock1s call K2 through `si::resblock_step`, run at B = 4
+                in the same child process: 72 K2 launches and no K1 per
+                batch, waveform atol 1e-5 of the live call, labels equal;
   export_aot_cli  `export_aot.main --platforms cuda,cpu` on a HuBERT-base
                 `CustomModel` state dict, the V1 `g_*` and the codebook as
                 files: equal to a direct `save_serving_artifact` (atol
@@ -185,6 +190,23 @@ it stopped); any failure raises and exits non-zero:
                 launches), again resuming 2 → 4, then `predict_ea` (216 K1
                 launches) and `vocode wav2wav` (72 K2 per forward) from the
                 g_ it wrote; that g_ served equal to the module's fold();
+  istft_gan_step_parity  the GAN step with the trainable iSTFT-head
+                generator (`WNISTFTGenerator`, C8C8I at width 512), the
+                vanilla recipe, the full MPD and MSD, B = 2 × 8192, f32:
+                card vs CPU beside a float64 CPU step (losses rel 1e-5,
+                every tensor by testing.parity_gate), the elements behind
+                a discriminator leaky-ReLU input that the two float32 runs
+                put on opposite sides of its kink, within rounding of it
+                in float64, held apart (each flip and its margin printed);
+  istft_gan_train  eight steps of it at B = 16 × 8192 (host seconds per
+                step through utils/timing.force, median and range of steps
+                2-8, CUDA-event ms, audio-s/s, peak memory, the bound, one
+                step under utils/profiling.trace); `train_hifigan.main
+                --istft` twice (2 steps and a validation sweep of 36 K1
+                launches, resumed 2 → 4), K1 vs its plain version at the
+                sweep's new tiles; the generator it trained, from its g_,
+                folded as the vocoder of the main path's inpainter (B = 4 ×
+                4 s: 36 K1 launches, kernel vs plain path, card vs CPU);
   f0vq_step_parity  three steps of the pitch quantizer's trainer
                 (train/f0vq.py) at configs/f0_vqvae.json's width, B = 16 ×
                 208 f0 frames, from an uninitialised codebook: card vs CPU
@@ -1621,6 +1643,7 @@ def phase_cli(torch, large) -> dict:
 
 AOT_SECONDS = 4.0
 AOT_BATCHES = (4, 8)
+AOT_PLAIN_ATOL = 1e-5  # the plain-Generator artifact against the live call
 INT8_RTOL = 0.1    # int8 HuBERT-base against f32, relative norm error: the
 #                    random-weight encoder carries float32 rounding, through
 #                    int8 code flips, to a few 1e-2 of its output (the card
@@ -1628,7 +1651,9 @@ INT8_RTOL = 0.1    # int8 HuBERT-base against f32, relative norm error: the
 #                    quantizer reads ~1
 # the loaded artifacts run in a process that cannot import the port's
 # models, converters or live inpainter (nor JAX): argv is the directory of
-# the artifacts and their inputs, then the artifacts' names
+# the artifacts and their inputs, then the artifacts' names, each with
+# ":B" where it runs at that batch size alone; K1's and K2's launches are
+# counted apart
 AOT_CHILD = r"""
 import json, sys, time
 import numpy as np
@@ -1639,21 +1664,26 @@ for name in ("jax", "speech_inpainting_tpu", "speech_inpainting_torch.models",
 import torch
 from pathlib import Path
 from speech_inpainting_torch.infer.aot import load_serving_artifact
-from speech_inpainting_torch.ops.resblock import fused_resblock1
+from speech_inpainting_torch.ops.resblock import (fused_resblock1,
+                                                  fused_resblock_step)
 d, names = Path(sys.argv[1]), sys.argv[2:]
 x = np.load(d / "inputs.npz")
 out = {}
-for name in names:
+for spec in names:
+    name, _, only = spec.partition(":")
     t0 = time.perf_counter()
     art = load_serving_artifact(d / name)
     torch.cuda.synchronize()
     row = {"load_s": time.perf_counter() - t0, "runs": {}}
     for B in sorted(int(k[3:]) for k in x.files if k.startswith("w22")):
+        if only and B != int(only):
+            continue
         args = [x[f"{k}{B}"] for k in ("w22", "w16", "pos", "lens")]
-        fused_resblock1.launches = 0
+        fused_resblock1.launches = fused_resblock_step.launches = 0
         res = art.batch(*args)
         torch.cuda.synchronize()
         launches = fused_resblock1.launches
+        k2_launches = fused_resblock_step.launches
         np.savez(d / f"{name}_{B}.npz",
                  **{k: v.float().cpu().numpy() if k != "pred_labels"
                     else v.cpu().numpy() for k, v in res.items()})
@@ -1664,7 +1694,7 @@ for name in names:
         for _ in range(5):
             art.batch(*dev)
         torch.cuda.synchronize()
-        row["runs"][B] = {"launches": launches,
+        row["runs"][B] = {"launches": launches, "k2_launches": k2_launches,
                           "batch_s": (time.perf_counter() - t0) / 5}
     out[name] = row
     del art
@@ -1692,13 +1722,20 @@ def phase_aot_export(torch, main_setup, d: Path) -> dict:
     the port's models, converters or live inpainter; its waveforms against
     the live `InformedInpainter.batch` (f32 atol MAIN_ATOL, bf16 rel
     BF16_RTOL), labels equal, K1 launches per batch (72 for V1, 36 for the
-    engine); export, load and batch times beside the live batch's."""
+    engine); export, load and batch times beside the live batch's. Then
+    `aot_plain_generator`: the same f32 inpainter with the plain
+    models/hifigan.py `Generator` as the override, whose traced ResBlock1s
+    call K2's operator `si::resblock_step`, exported the same way and run
+    at B = 4 alone in the same child process: 72 K2 launches (and no K1)
+    per batch, waveform within AOT_PLAIN_ATOL of the live call, labels
+    equal."""
     from speech_inpainting_torch.convert.from_jax import (
-        istft_generator_from_jax)
+        generator_from_jax, istft_generator_from_jax)
     from speech_inpainting_torch.infer.aot import save_serving_artifact
     from speech_inpainting_torch.infer.inpaint import (InformedInpainter,
                                                        InpainterConfig)
-    from speech_inpainting_torch.models.hifigan import HiFiGANConfig
+    from speech_inpainting_torch.models.hifigan import (Generator,
+                                                        HiFiGANConfig)
     from speech_inpainting_torch.models.hifigan_istft import (
         ISTFTGeneratorConfig)
     from speech_inpainting_torch.models.hubert import HubertConfig
@@ -1722,6 +1759,12 @@ def phase_aot_export(torch, main_setup, d: Path) -> dict:
         "istft_float32": (InformedInpainter(
             cfg, hp, None, centroids, generator=istft_generator_from_jax(
                 icfg, generator_tree(icfg, rng))), torch.float32, 36)}
+    plain = InformedInpainter(cfg, hp, None, centroids,
+                              generator=generator_from_jax(
+                                  cfg.hifigan, gp, cls=Generator))
+    t0 = time.perf_counter()
+    save_serving_artifact(d / "v1_plain_generator", plain, t22, t16)
+    plain_export_s = time.perf_counter() - t0
     rows = {}
     for name, (inp, dtype, n) in engines.items():
         t0 = time.perf_counter()
@@ -1734,7 +1777,8 @@ def phase_aot_export(torch, main_setup, d: Path) -> dict:
             rows[name]["poly_export_error"] = meta["poly_export_error"]
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-c", AOT_CHILD, str(d),
-                          *engines], cwd=Path(__file__).resolve().parent,
+                          *engines, f"v1_plain_generator:{AOT_BATCHES[0]}"],
+                         cwd=Path(__file__).resolve().parent,
                          capture_output=True, text=True, timeout=600)
     child_s = time.perf_counter() - t0
     if res.returncode != 0:
@@ -1766,12 +1810,42 @@ def phase_aot_export(torch, main_setup, d: Path) -> dict:
                 "ok": bool(good)}
         emit({"phase": "aot_export", "artifact": name, **row})
     emit({"phase": "aot_export_child", "seconds": child_s,
-          "note": "one process: imports, three loads, the runs"})
+          "note": "one process: imports, four loads, the runs"})
     if not ok or not all(r["poly"] for r in rows.values()):
         raise AssertionError("aot_export: the artifact and the live "
                              "inpainter disagree, or the export is static")
-    return {"launches": {name: rows[name][f"B{AOT_BATCHES[0]}"]["launches"]
-                         for name in rows}}
+    B = AOT_BATCHES[0]
+    t0 = time.perf_counter()
+    run = child["v1_plain_generator"]["runs"][str(B)]
+    got = dict(np.load(d / f"v1_plain_generator_{B}.npz"))
+    err, labels = _aot_gap(torch, got, plain.batch(*batches[B]),
+                           torch.float32)
+    dev = [torch.as_tensor(a, device="cuda") for a in batches[B]]
+    live_s = _timed_batches(torch, plain, dev)
+    audio_s = B * got["inpainted"].shape[1] / 22050.0
+    plain_ok = (run["k2_launches"] == 72 and run["launches"] == 0
+                and err <= AOT_PLAIN_ATOL and labels
+                and bool(np.isfinite(got["inpainted"]).all()))
+    emit({"phase": "aot_plain_generator", "B": B, "export_s": plain_export_s,
+          "load_s": child["v1_plain_generator"]["load_s"],
+          "k2_launches": run["k2_launches"], "expected_k2_launches": 72,
+          "k1_launches": run["launches"], "vs_live": err,
+          "tolerance": AOT_PLAIN_ATOL, "labels_equal": labels,
+          "artifact_batch_ms": 1e3 * run["batch_s"],
+          "live_batch_ms": 1e3 * live_s,
+          "artifact_audio_seconds_per_second": audio_s / run["batch_s"],
+          "live_audio_seconds_per_second": audio_s / live_s,
+          "seconds": plain_export_s + time.perf_counter() - t0,
+          "seconds_note": "export and the checks here; its load and run "
+                          "are in the child's seconds",
+          "ok": plain_ok})
+    if not plain_ok:
+        raise AssertionError("aot_plain_generator: the exported plain "
+                             "Generator's artifact disagrees with the live "
+                             "call or missed K2")
+    return {"launches": {name: rows[name][f"B{B}"]["launches"]
+                         for name in rows},
+            "k2_launches": run["k2_launches"]}
 
 
 def phase_export_aot_cli(torch, main_setup, d: Path) -> dict:
@@ -3323,7 +3397,9 @@ def gan_flops(gcfg, B, seg, frames=None) -> dict:
     """Forward FLOP (a multiply-add counts 2) of the generator on B crops of
     `seg` samples from `frames` input frames (the VOCODER_MEL_22K frames of
     the crop where None), and of the MPD and MSD together on B
-    waveforms."""
+    waveforms. An ISTFTGeneratorConfig's generator ends in conv_post's
+    n_fft + 2 channels and the inverse DFT's product (n_fft + 2 by n_fft
+    a frame)."""
     T = frames or 1 + (seg + 768 - 1024) // 256
     c = gcfg.upsample_initial_channel
     gen = 2 * B * T * c * gcfg.in_dim * 7
@@ -3336,7 +3412,11 @@ def gan_flops(gcfg, B, seg, frames=None) -> dict:
         for rk, rd in zip(gcfg.resblock_kernel_sizes,
                           gcfg.resblock_dilation_sizes):
             gen += 2 * B * T * ch * ch * rk * 2 * len(rd)
-    gen += 2 * B * T * ch * 7
+    n_fft = getattr(gcfg, "istft_n_fft", None)
+    if n_fft is None:
+        gen += 2 * B * T * ch * 7
+    else:
+        gen += 2 * B * T * (n_fft + 2) * (ch * 7 + n_fft)
     disc = 0
     for p in (2, 3, 5, 7, 11):
         H, c_in = -(-seg // p), 1
@@ -3413,17 +3493,19 @@ def _gan_trees(torch, gcfg, rng):
             msd_tree(msd), spectral_tree(msd))
 
 
-def _gan_state(torch, tcfg, trees, device, f64=False):
-    """A GANTrainState on `device` from the trees; f64 computes and stores
-    everything in float64 (the reference step)."""
-    from speech_inpainting_torch.convert.from_jax import (mpd_from_jax,
-                                                          msd_from_jax,
-                                                          trainable_generator)
+def _gan_state(torch, tcfg, trees, device, f64=False, icfg=None):
+    """A GANTrainState on `device` from the trees, the generator an iSTFT
+    one where `icfg` (an ISTFTGeneratorConfig) is given; f64 computes and
+    stores everything in float64 (the reference step)."""
+    from speech_inpainting_torch.convert.from_jax import (
+        mpd_from_jax, msd_from_jax, trainable_generator,
+        trainable_istft_generator)
     from speech_inpainting_torch.train.gan import create_gan_state
     g, mp, mv, spec = trees
     ddt = torch.bfloat16 if tcfg.gan.disc_bf16 else torch.float32
-    mods = (trainable_generator(tcfg.hifigan, g, device=device),
-            mpd_from_jax(mp, dtype=ddt, device=device),
+    gen = (trainable_generator(tcfg.hifigan, g, device=device) if icfg is None
+           else trainable_istft_generator(icfg, g, device=device))
+    mods = (gen, mpd_from_jax(mp, dtype=ddt, device=device),
             msd_from_jax(mv, spec, dtype=ddt, device=device))
     if f64:
         for m in mods:
@@ -3464,7 +3546,7 @@ def _gan_tensors(torch, state) -> dict:
     return {f"{k} {n}": t for (k, n), t in _gan_named(torch, state).items()}
 
 
-def _gan_gaps(a, b, r) -> dict:
+def _gan_gaps(a, b, r, kink: dict | None = None) -> dict:
     """`a` against `b` (`_gan_tensors` of two float32 states after the same
     step from the same start: the card's and the CPU's), with `r`, the
     CPU's float64 step, beside them, by testing.parity_gate per tensor
@@ -3474,28 +3556,126 @@ def _gan_gaps(a, b, r) -> dict:
     own float32 gap) of float64. Each tensor of more than NOISE_SMALL
     elements may hold testing.NOISE.share of its elements outside both, and
     every outside element must lie within NOISE.excess × the tolerance
-    (the limits are printed with the readings): a leaky ReLU input within
-    rounding of
+    (NOISE.small_excess × in a smaller tensor; the limits are printed
+    with the readings): a leaky ReLU input within rounding of
     its kink (several a step at these widths) takes its slope by the
     rounding's sign and moves every gradient behind it. A parameter
     element outside whose gradient is zero up to rounding (its float64
     first moment within the moment's tolerance of zero) is held to AdamW's
-    noise bound instead."""
+    noise bound instead. `kink` ({"kind name": mask}, `_kink_flips`)
+    marks the elements behind a discriminator input whose slope the two
+    runs took apart: its parameters are held to that bound too (one AdamW
+    step moves an element by at most 1.005·lr whatever its gradient), its
+    gradients and moments are counted apart and not held."""
     from speech_inpainting_torch.testing import (ADAMW_NOISE, NOISE,
                                                  parity_gate,
                                                  zero_up_to_rounding)
+    kink = kink or {}
     mu = [k for k in b if k.startswith("mu ")]
     zero = zero_up_to_rounding({k: b[k] for k in mu}, {k: r[k] for k in mu})
     zero = {"param " + k[3:]: m for k, m in zero.items()}
-    rep = parity_gate(a, b, r, exempt=zero, bound=ADAMW_NOISE * GAN_LR)
+    for k, m in kink.items():
+        if k.startswith("param "):
+            zero[k] = zero[k] | m
+    params = [k for k in b if k.startswith("param ")]
+    rest = [k for k in b if not k.startswith("param ")]
+    reps = [parity_gate(*({k: t[k] for k in keys} for t in (a, b, r)),
+                        exempt=ex, bound=bound)
+            for keys, ex, bound in (
+                (params, zero, ADAMW_NOISE * GAN_LR),
+                (rest, {k: m for k, m in kink.items() if k in rest}, None))]
+    rep = {"f64": [n for x in reps for n in x["f64"]],
+           **{key: {n: v for x in reps for n, v in x[key].items()}
+              for key in ("outside", "exempt")},
+           **{key: max(x[key] for x in reps)
+              for key in ("share_max", "excess_max", "small_excess_max")},
+           "failed": [n for x in reps for n in x["failed"]]}
     kinds = sorted({k.split(" ")[0] for k in rep["f64"]})
     return {"outside": rep["outside"], "exempt": rep["exempt"],
             "share_max": rep["share_max"], "excess_max": rep["excess_max"],
-            "limits": {"share": NOISE.share, "excess": NOISE.excess},
+            "small_excess_max": rep["small_excess_max"],
+            "limits": {"share": NOISE.share, "excess": NOISE.excess,
+                       "small_excess": NOISE.small_excess},
             "f64_tensor_counts": {k: sum(n.startswith(k + " ")
                                          for n in rep["f64"])
                                   for k in kinds},
-            "failed": rep["failed"], "ok": rep["ok"]}
+            "failed": rep["failed"], "ok": not rep["failed"]}
+
+
+@contextlib.contextmanager
+def _d_step_preacts(torch, state):
+    """Yields {(discriminator, j): float64 CPU tensor}, filled by the next
+    GAN step: the output of `convs.{j}` (the input of a leaky ReLU) of
+    every MPD and MSD discriminator in the discriminators' step, the calls
+    made while their parameters take gradients (the generator's step runs
+    them frozen), joined on the batch axis (MSD scale 0 takes y and ŷ in
+    two calls)."""
+    seen, handles = {}, []
+    for mname in ("mpd", "msd"):
+        for i, d in enumerate(getattr(state, mname).discriminators):
+            for j, conv in enumerate(d.convs):
+                def hook(m, args, out, key=(f"{mname}.discriminators.{i}", j)):
+                    if m.bias.requires_grad:
+                        seen.setdefault(key, []).append(
+                            out.detach().double().cpu())
+                handles.append(conv.register_forward_hook(hook))
+    try:
+        yield seen
+    finally:
+        for h in handles:
+            h.remove()
+        for key, outs in seen.items():
+            seen[key] = torch.cat(outs)
+
+
+def _kink_flips(torch, state, card: dict, cpu: dict, ref: dict) -> tuple:
+    """The discriminators' leaky-ReLU inputs (`_d_step_preacts` of the
+    card's, the CPU's and the CPU's float64 step) on which the two float32
+    runs took different slopes (one > 0, the other not). A flip whose
+    float64 value lies within rounding of the kink (|z64| within
+    testing.noise_tolerance of its layer's output in that batch row, the
+    real rows and the generated ones apart; margin = |z64| / that ≤ 1)
+    explains a gap in every gradient behind it: channel c of that
+    conv's parameters (the whole of a spectral-normed weight, whose σ
+    couples its rows) and the whole of the discriminator's earlier convs,
+    with their moments and updated values. Returns (masks {"kind name":
+    bool array} of those elements, report: the flips, those within
+    rounding, the largest margin of each, and the first eight)."""
+    from speech_inpainting_torch.testing import noise_tolerance
+    masks, flips = {}, []
+    for (disc, j), z64 in ref.items():
+        zc, zp = card[(disc, j)], cpu[(disc, j)]
+        tols = [noise_tolerance(a, b) for a, b in zip(zp, z64)]
+        for idx in ((zc > 0) != (zp > 0)).nonzero().tolist():
+            tol = tols[idx[0]]
+            margin = float(z64[tuple(idx)].abs()) / tol
+            flips.append({"discriminator": disc, "conv": j,
+                          "row": idx[0], "channel": idx[1], "z_f64": float(z64[tuple(idx)]),
+                          "z_card": float(zc[tuple(idx)]),
+                          "z_cpu": float(zp[tuple(idx)]), "tolerance": tol,
+                          "margin": margin})
+            if margin > 1:
+                continue
+            mname, rest = disc.split(".", 1)
+            d = getattr(state, mname).get_submodule(rest)
+            for k in range(j + 1):
+                for n, p in d.convs[k].named_parameters():
+                    m = masks.setdefault(f"{disc}.convs.{k}.{n}",
+                                         np.zeros(tuple(p.shape), bool))
+                    if k < j or n == "weight_orig":
+                        m[...] = True
+                    else:
+                        m[idx[1]] = True
+    masks = {f"{kind} {n}": m for n, m in masks.items()
+             for kind in ("param", "grad", "mu", "nu")}
+    within = [f for f in flips if f["margin"] <= 1]
+    report = {"flips": len(flips), "flips_within_rounding": len(within),
+              "margin_max_within": max((f["margin"] for f in within),
+                                       default=None),
+              "margin_min_outside": min((f["margin"] for f in flips
+                                         if f["margin"] > 1), default=None),
+              "first": sorted(flips, key=lambda f: f["margin"])[:8]}
+    return masks, report
 
 
 def _rel(a, b) -> float:
@@ -3846,6 +4026,259 @@ def _sweep_check(torch, generator, wavs) -> dict:
             and tuple(out.shape) == (GAN_B, 1, GAN_SEG)}
 
 
+# ------------------------------------------- the iSTFT-head GAN trainer
+
+ISTFT_SEG = 8192       # the vanilla recipe's segment (configs/hifigan_v1.json)
+ISTFT_LAUNCHES = 36    # K1 in one forward of the C8C8I trunk: 6 ResBlock1s
+#                        of 3 steps, two launches a step
+
+
+def phase_istft_gan_step_parity(torch) -> dict:
+    """The GAN step with the iSTFT-head generator at full width on the card
+    against the CPU: `WNISTFTGenerator` at the C8C8I geometry, width 512
+    (ISTFTGeneratorConfig's defaults), drawn to carry its input
+    (testing.generator_tree's carry=True), the vanilla recipe of
+    configs/hifigan_v1.json, the full MPD and MSD, B = 2 × 8192, f32,
+    batched_disc on; the phase's own draws of the generator, the
+    discriminators and the batch. One step on the card and on the CPU, and
+    in float64 on the CPU: loss_disc, loss_gen_all and mel_error rel 1e-5;
+    every parameter, gradient, moment and u/v by `_gan_gaps`, with the
+    elements behind a discriminator leaky-ReLU input on which the two
+    float32 runs took different slopes, and whose float64 value lies
+    within rounding of the kink, apart (`_kink_flips`: each flip with its
+    float64 margin is printed; a flip outside rounding exempts nothing).
+    The row gives the seconds of each stage."""
+    from speech_inpainting_torch.models.hifigan_istft import (
+        ISTFTGeneratorConfig)
+    from speech_inpainting_torch.train.hifigan import make_vanilla_step
+    rng = np.random.default_rng(SEED + 200)
+    icfg = ISTFTGeneratorConfig()
+    tcfg = _gan_cfg(CONFIGS / "hifigan_v1.json", ISTFT_SEG)
+    trees = _gan_trees(torch, icfg, rng)
+    batch = {"audio": _gan_audio(rng, 2, ISTFT_SEG)}
+    step = make_vanilla_step(tcfg)
+    t0 = time.perf_counter()
+    runs, z, stage_s = {}, {}, {}
+    for name, dev, f64 in (("card", "cuda", False), ("cpu", "cpu", False),
+                           ("ref", "cpu", True)):
+        t1 = time.perf_counter()
+        state = _gan_state(torch, tcfg, trees, dev, f64=f64, icfg=icfg)
+        with _d_step_preacts(torch, state) as z[name]:
+            runs[name] = step(state, {"audio": batch["audio"].astype(
+                np.float64)} if f64 else batch)
+        stage_s[f"{name}_step"] = time.perf_counter() - t1
+    (card, mc), (cpu, mp), (ref, _) = runs.values()
+    mc = {k: float(v) for k, v in mc.items()}
+    mp = {k: float(v) for k, v in mp.items()}
+    t1 = time.perf_counter()
+    kink, flips = _kink_flips(torch, cpu, z["card"], z["cpu"], z["ref"])
+    stage_s["kink_flips"] = time.perf_counter() - t1
+    del z
+    t1 = time.perf_counter()
+    gaps = _gan_gaps(_gan_tensors(torch, card), _gan_tensors(torch, cpu),
+                     _gan_tensors(torch, ref), kink)
+    stage_s["gate"] = time.perf_counter() - t1
+    n_params = sum(p.numel() for p in card.generator.parameters())
+    del card, cpu, ref, runs, kink
+    rels = {k: _rel(mc[k], mp[k]) for k in mc}
+    keys = ("loss_disc", "loss_gen_all", "mel_error")
+    ok = max(rels[k] for k in keys) <= 1e-5 and gaps["ok"]
+    row = {"phase": "istft_gan_step_parity",
+           "generator": f"C8C8I width {icfg.upsample_initial_channel}",
+           "generator_params_millions": n_params / 1e6,
+           "config": "hifigan_v1.json", "B": 2, "samples": ISTFT_SEG,
+           "dtype": "float32", "metrics_card": mc, "metrics_cpu": mp,
+           "metrics_rel": rels, "card_vs_cpu": gaps,
+           "kink_flips_card_vs_cpu": flips, "seconds_by_stage": stage_s,
+           "seconds": time.perf_counter() - t0, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("iSTFT GAN step parity check failed")
+    return row
+
+
+def phase_istft_gan_train(torch, main_setup, covered) -> dict:
+    """The iSTFT-head generator's training as a user runs it, at full width
+    (C8C8I, width 512; configs/hifigan_v1.json's vanilla recipe, the full
+    MPD and MSD, batched_disc on, the CLI's init):
+      - eight f32 steps on one batch of B = 16 × 8192 (3.0 s of audio a
+        step): each step's host seconds, forced to complete by the port's
+        `utils/timing.force` (the first, with cuDNN's algorithm choice,
+        apart; median, min and max of steps 2-8), its CUDA-event ms beside
+        it, trained audio-s per s, peak memory, the bound
+        (`gan_step_bound_ms` over the iSTFT geometry); one more step under
+        `utils/profiling.trace` (its Chrome trace holds the card's
+        kernels); mel_error over the last three steps below the first's;
+      - `train_hifigan.main --istft` on 32 synthetic 3 s wavs with a
+        16-wav validation filelist, twice (2 steps and a validation sweep,
+        then resumed 2 → 4 and another sweep): the sweep's folded
+        `ISTFTGenerator` launches K1 36 times (one B = 16 forward), K1
+        against its plain version at the sweep's tiles no earlier check
+        reached, the sweep's forward kernel path against plain path;
+      - the g_ it wrote, loaded into `trainable_istft_generator` and
+        folded, as the vocoder of the main path's `InformedInpainter`
+        (HuBERT-base + head, 100×80 codebook, B = 4 × 4 s) by
+        `_path_check`: 36 K1 launches a batch, kernel path against plain
+        path (atol MAIN_ATOL), card against the CPU on the short input; and
+        that folded generator equal to the trained module's fold()."""
+    import tempfile
+    from speech_inpainting_torch.cli import train_hifigan
+    from speech_inpainting_torch.convert.from_jax import (
+        trainable_istft_generator)
+    from speech_inpainting_torch.device import full_f32
+    from speech_inpainting_torch.infer.inpaint import InformedInpainter
+    from speech_inpainting_torch.models.hifigan_istft import (
+        ISTFTGeneratorConfig)
+    from speech_inpainting_torch.ops.mel import (VOCODER_MEL_22K,
+                                                 mel_spectrogram)
+    from speech_inpainting_torch.ops.resblock import fused_resblock1
+    from speech_inpainting_torch.testing import synthetic_batch
+    from speech_inpainting_torch.train.gan import (create_gan_state,
+                                                   default_discriminators)
+    from speech_inpainting_torch.train.hifigan import make_vanilla_step
+    from speech_inpainting_torch.utils.profiling import trace
+    from speech_inpainting_torch.utils.timing import force
+    rng = np.random.default_rng(SEED + 210)
+    t_start = time.perf_counter()
+    icfg = ISTFTGeneratorConfig()
+    tcfg = _gan_cfg(CONFIGS / "hifigan_v1.json", ISTFT_SEG)
+    torch.cuda.reset_peak_memory_stats()
+    gen = trainable_istft_generator(
+        icfg, device="cuda", generator=torch.Generator().manual_seed(1234))
+    state = create_gan_state(tcfg.gan, gen,
+                             *default_discriminators(tcfg.gan, "cuda"))
+    n_params = sum(p.numel() for m in (state.generator, state.mpd, state.msd)
+                   for p in m.parameters())
+    batch = {"audio": torch.as_tensor(_gan_audio(rng, GAN_B, ISTFT_SEG),
+                                      device="cuda")}
+    step = make_vanilla_step(tcfg)
+    host_s, ms, metrics = [], [], []
+    for _ in range(8):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        a.record()
+        state, m = step(state, batch)
+        b.record()
+        force(m)
+        host_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+        metrics.append({k: float(v) for k, v in m.items()})
+    with tempfile.TemporaryDirectory() as prof_dir:
+        with trace(prof_dir):
+            force(step(state, batch)[1])
+        events = json.loads((Path(prof_dir) / "trace.json").read_text())
+    kernels = sum(str(e.get("cat", "")).lower() == "kernel"
+                  for e in events["traceEvents"])
+    med = float(np.median(host_s[1:]))
+    audio_s = GAN_B * ISTFT_SEG / GAN_SR
+    mel = [m["mel_error"] for m in metrics]
+    finite = all(np.isfinite(v) for m in metrics for v in m.values())
+    train = {"first_step_s": host_s[0], "s_per_step_median": med,
+             "s_per_step_min": min(host_s[1:]),
+             "s_per_step_max": max(host_s[1:]), "s_per_step": host_s,
+             "event_ms_per_step": ms,
+             "event_ms_per_step_median": float(np.median(ms[1:])),
+             "audio_seconds_per_second": audio_s / med,
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "mel_error": mel, "trace_kernel_events": kernels,
+             **gan_step_bound_ms(icfg, GAN_B, ISTFT_SEG, n_params, False)}
+    train_ok = finite and max(mel[-3:]) < mel[0] and kernels > 0
+    del state, step, gen, batch
+    cfg, hp, gp, centroids = main_setup
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        (d / "wavs").mkdir()
+        # two batches to train on (an epoch of 2 steps), one to validate
+        wavs = synthetic_batch(rng, 3 * GAN_B, 3.0)[0]
+        names = [f"utt{i:02d}" for i in range(3 * GAN_B)]
+        for n, w in zip(names, wavs):
+            _write_wav(d / "wavs" / f"{n}.wav", w, GAN_SR)
+        (d / "train.txt").write_text("\n".join(names[:2 * GAN_B]) + "\n")
+        (d / "valid.txt").write_text("\n".join(names[2 * GAN_B:]) + "\n")
+        cmd = ["--wavs", str(d / "wavs"), "--filelist", str(d / "train.txt"),
+               "--valid-filelist", str(d / "valid.txt"), "--config",
+               str(CONFIGS / "hifigan_v1.json"), "--istft",
+               "--checkpoint-path", str(d / "ckpt"), "--batch-size",
+               str(GAN_B), "--epochs", "1", "--validation-interval", "2",
+               "--device", "cuda"]
+        runs = []
+        for _ in range(2):
+            fused_resblock1.launches = 0
+            t0 = time.perf_counter()
+            state = train_hifigan.main(cmd)
+            torch.cuda.synchronize()
+            runs.append({"seconds": time.perf_counter() - t0,
+                         "end_step": state.step,
+                         "validation_k1_launches": fused_resblock1.launches,
+                         "checkpoints": sorted(
+                             p.name for p in (d / "ckpt").iterdir())})
+        sd = torch.load(d / "ckpt" / "g_00000004", map_location="cpu",
+                        weights_only=True)["generator"]
+    # a forward at the sweep's shapes (B = 16 crops of 8192 samples of the
+    # validation wavs, 32 frames), kernel path against plain path
+    served = {}
+    for dev in ("cuda", "cpu"):
+        g = trainable_istft_generator(state.generator.istft, device=dev)
+        g.load_state_dict(sd)
+        served[dev] = g.fold()
+    folded = served["cuda"]
+    audio = torch.as_tensor(wavs[2 * GAN_B:, :ISTFT_SEG], device="cuda")
+    with torch.no_grad(), full_f32():
+        sweep_mel = mel_spectrogram(audio, VOCODER_MEL_22K)
+        fused_resblock1.launches = 0
+        out = folded(sweep_mel)
+        torch.cuda.synchronize()
+        sweep_launches = fused_resblock1.launches
+        fold_gap = float((out - state.generator.fold()(sweep_mel))
+                         .abs().max())
+        folded.use_kernel = False
+        plain = folded(sweep_mel)
+        folded.use_kernel = True
+    sweep_gap = float((out - plain).abs().max())
+    frames = sweep_mel.shape[-1]
+    stage_T = {icfg.upsample_initial_channel // 2: frames * 8,
+               icfg.upsample_initial_channel // 4: frames * 64}
+    errs = _k1_checks(torch, _uncovered_shapes(torch, covered, (GAN_B,),
+                                               stage_T),
+                      "istft_valid_kernel_check", SEED + 220)
+    del state
+    inp = InformedInpainter(cfg, hp, None, centroids, generator=folded)
+    cpu = InformedInpainter(cfg, hp, None, centroids, device="cpu",
+                            generator=served["cpu"])
+    check = _path_check(torch, "istft_trained_inpainter", inp, cpu,
+                        synthetic_batch(rng, 4, 4.0), ISTFT_LAUNCHES)
+    del inp, cpu, served, folded
+    ok = (train_ok and runs[0]["end_step"] == 2 and runs[1]["end_step"] == 4
+          and runs[0]["checkpoints"] == ["do_00000002", "g_00000002"]
+          and runs[1]["checkpoints"] == ["do_00000002", "do_00000004",
+                                         "g_00000002", "g_00000004"]
+          and all(r["validation_k1_launches"] == ISTFT_LAUNCHES
+                  for r in runs)
+          and sweep_launches == ISTFT_LAUNCHES and sweep_gap <= MAIN_ATOL
+          and fold_gap <= 1e-6 and check["ok"])
+    row = {"phase": "istft_gan_train",
+           "generator": f"C8C8I width {icfg.upsample_initial_channel}",
+           "config": "hifigan_v1.json", "recipe": "vanilla", "B": GAN_B,
+           "samples": ISTFT_SEG, "audio_seconds_per_step": audio_s,
+           "train": train, "cli_runs": runs,
+           "validation_sweep": {"B": GAN_B, "frames": frames,
+                                "k1_launches": sweep_launches,
+                                "kernel_vs_plain_max_abs": sweep_gap,
+                                "tolerance": MAIN_ATOL,
+                                "g_file_vs_fold_max_abs": fold_gap,
+                                "kernel_checks": len(errs)},
+           "inpainter_k1_launches": check["launches"],
+           "seconds": time.perf_counter() - t_start, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("iSTFT GAN training check failed")
+    return {**row, "path": {"T": stage_T,
+                            "kernel_sizes": icfg.resblock_kernel_sizes,
+                            "dilations": icfg.resblock_dilation_sizes},
+            "kernel_check_rows": errs}
+
+
 F0VQ_CONFIG = CONFIGS / "f0_vqvae.json"
 F0VQ_SILENT = 4        # all-unvoiced clips in the parity batch (of 16)
 # the parity run's candidate generator: its first draw takes the same
@@ -3991,7 +4424,9 @@ def phase_f0vq_step_parity(torch, ds) -> dict:
            "losses_max_rel": loss_rel, "losses_rtol": 1e-5,
            "gate_outside": rep["outside"], "gate_exempt": rep["exempt"],
            "share_max": rep["share_max"], "excess_max": rep["excess_max"],
-           "limits": {"share": NOISE.share, "excess": NOISE.excess},
+           "small_excess_max": rep["small_excess_max"],
+           "limits": {"share": NOISE.share, "excess": NOISE.excess,
+                      "small_excess": NOISE.small_excess},
            "f64_tensors": len(rep["f64"]), "failed": rep["failed"],
            "seconds": time.perf_counter() - t0, "ok": ok}
     emit(row)
@@ -4887,6 +5322,8 @@ def main() -> int:
     phase_gan_step_parity(torch)
     phase_gan_train(torch)
     gcli = phase_train_hifigan_cli(torch)
+    phase_istft_gan_step_parity(torch)
+    ist = phase_istft_gan_train(torch, path["setup"], covered)
     f0ds, f0_corpus_s = _f0_corpus(torch)
     phase_f0vq_step_parity(torch, f0ds)
     phase_f0vq_train(torch, f0ds, f0_corpus_s)
@@ -4907,6 +5344,9 @@ def main() -> int:
                  GAN_B, gcli["validation_sweep"]["path"]["T"],
                  gcli["validation_sweep"]["path"]["kernel_sizes"],
                  gcli["validation_sweep"]["path"]["dilations"]),
+             "train_hifigan_istft_validation": _plan_tiles(
+                 GAN_B, ist["path"]["T"], ist["path"]["kernel_sizes"],
+                 ist["path"]["dilations"]),
              "train_da_validation": _plan_tiles(
                  4, dcli["validation_path"]["T"],
                  dcli["validation_path"]["kernel_sizes"],
@@ -4926,9 +5366,11 @@ def main() -> int:
         # B = 64 serving batches at depth 4, the long-form recording's one
         # batch of 8 windows, the CLI's three vocoder calls, the same three
         # from the I_ea trainer's last_ checkpoint and from the GAN trainer's
-        # g_ (training launches none), and the evaluation sweep's three
-        # (wav, mask length) batches, each a `batch` and a `batch_expected`
-        # of B = 8
+        # g_ (training launches none), the evaluation sweep's three (wav,
+        # mask length) batches, each a `batch` and a `batch_expected` of B =
+        # 8, the iSTFT trainer's validation sweep (one B = 16 forward of the
+        # folded ISTFTGenerator) and one B = 4 batch of the inpainter with
+        # the generator it trained
         "launches_by_path": {
             "I_ea_hubert_base_v1": path["launches"],
             "I_ea_hubert_large_v1": large_launches,
@@ -4943,13 +5385,19 @@ def main() -> int:
             "aot_artifact_v1_bf16_per_batch":
                 aot["launches"]["v1_bfloat16"],
             "aot_artifact_istft_per_batch": aot["launches"]["istft_float32"],
-            "export_aot_cli_artifact_per_batch": aot_cli["launches"]},
+            "export_aot_cli_artifact_per_batch": aot_cli["launches"],
+            "train_hifigan_istft_validation_sweep":
+                ist["cli_runs"][0]["validation_k1_launches"],
+            "istft_trained_inpainter_per_batch":
+                ist["inpainter_k1_launches"]},
         # the worst over the checks: V1's 12 (C, K) shapes at B=2,
         # T=2049, the main path's 12 shapes at B=4, the edge shapes, and
-        # the sweep's B = 8 tiles no earlier check reached
+        # the evaluation sweep's B = 8 and the iSTFT trainer's validation
+        # sweep's B = 16 tiles no earlier check reached
         "max_abs_err": max(errs["f32_max_abs_err"], timed["float32"]["err"],
                            edge["K1"]["f32_max_abs_err"],
-                           *(r["err"] for r in ev["kernel_check_rows"])),
+                           *(r["err"] for r in ev["kernel_check_rows"]),
+                           *(r["err"] for r in ist["kernel_check_rows"])),
         "bf16_rel_err": max(errs["bf16_rel_err"], timed["bfloat16"]["err"],
                             edge["K1"]["bf16_rel_err"]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -4985,8 +5433,10 @@ def main() -> int:
         # utterance whose pitch quantizer train_f0vq trained, the unit
         # HiFi-GAN trainer's validation sweep (one B = 4 forward of the
         # folded CodeGenerator), one I_da utterance through the
-        # CodeGenerator it trained, and the ASR→TTS baseline's donor
-        # rendering (predict_asr --donor: two vocoder calls)
+        # CodeGenerator it trained, the ASR→TTS baseline's donor
+        # rendering (predict_asr --donor: two vocoder calls), and one B = 4
+        # batch of the exported artifact with a plain Generator override
+        # (through the operator si::resblock_step)
         "launches_by_path": {
             "I_da_utterance": ida["launches"],
             "inpaint_da_cli_per_utterance_per_mask":
@@ -5002,7 +5452,9 @@ def main() -> int:
             "train_da_validation_sweep":
                 dcli["runs"][0]["validation_k2_launches"],
             "I_da_utterance_with_trained_codegen": dcli["k2_launches"],
-            "predict_asr_donor_rendering": asr["launches"]},
+            "predict_asr_donor_rendering": asr["launches"],
+            "aot_artifact_v1_plain_generator_per_batch":
+                aot["k2_launches"]},
         # the worst over the I_da generator's 45 step shapes, V1's 36 at
         # the vocode CLI's lengths and 36 at the GAN trainer's validation
         # sweep (B = 16), the I_da generator's 45 at the DA trainer's sweep

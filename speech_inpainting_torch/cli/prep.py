@@ -1,13 +1,19 @@
-"""Data preparation CLI: resample/trim/pad, manifests, unit quantization,
-HuBERT features, f0 statistics, VCTK/LJSpeech split generation.
+"""Data preparation CLI: dataset acquisition, resample/trim/pad,
+manifests, unit quantization, HuBERT features, f0 statistics, VCTK/LJSpeech
+split generation.
 
 Counterpart of speech_inpainting_tpu/cli/prep.py, with its subcommands,
 flags and files, which replace the reference's offline scripts
 (I_da/scripts/{preprocess,create_manifest,quantize_with_kmeans,
 parse_hubert_codes,f0_stats}.py and the split logic of
-I_ea/dataset/preprocessing.py). The JAX CLI's `download` subcommand
-(dataset acquisition over the network) is not ported: point --root at a
-corpus on disk. The user's I_da preparation:
+I_ea/dataset/preprocessing.py). `download` fetches, extracts and (for
+VCTK) converts a corpus (data/download.py); with `--skip-download` it
+works from an archive already placed under --root, fetching nothing:
+
+  python -m speech_inpainting_torch.cli.prep download --dataset VCTK \
+      --root corpora --skip-download
+
+The user's I_da preparation:
 
   python -m speech_inpainting_torch.cli.prep preprocess --root raw --out wavs
   python -m speech_inpainting_torch.cli.prep manifest --root wavs --dest m
@@ -263,9 +269,27 @@ def cmd_summary(args):
           f"{len(utt & uvt)}")
 
 
+def cmd_download(args):
+    """Dataset acquisition (preprocessing.py's __main__ flow): the archive
+    (skipped where it is already there), its extraction, and for VCTK the
+    mic1 flacs as 22.05 kHz wavs."""
+    from ..data.download import fetch_dataset
+    dest = fetch_dataset(args.dataset, args.root,
+                         skip_download=args.skip_download)
+    print(f"dataset ready at {dest}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    s = sub.add_parser("download")
+    s.add_argument("--dataset", required=True,
+                   choices=["LJSpeech", "VCTK"])
+    s.add_argument("--root", default=".")
+    s.add_argument("--skip-download", action="store_true",
+                   help="the archive is already under --root: fetch "
+                        "nothing")
 
     s = sub.add_parser("splits")
     s.add_argument("--root", required=True)
@@ -336,7 +360,7 @@ def main(argv=None):
                    help="torch device (default: the CUDA card)")
 
     args = p.parse_args(argv)
-    {"splits": cmd_splits, "summary": cmd_summary,
+    {"download": cmd_download, "splits": cmd_splits, "summary": cmd_summary,
      "preprocess": cmd_preprocess, "manifest": cmd_manifest,
      "quantize": cmd_quantize, "features": cmd_features,
      "parse-codes": cmd_parse_codes,

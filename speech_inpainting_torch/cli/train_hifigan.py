@@ -1,5 +1,6 @@
 """HiFi-GAN training on the card: the vanilla vocoder, the teacher-mel
-fine-tune, or the centroid-substitution decoder fine-tune ("modified").
+fine-tune, or the centroid-substitution decoder fine-tune ("modified"),
+and the iSTFT-head vocoder family by the vanilla recipe (`--istft`).
 
 Counterpart of speech_inpainting_tpu/cli/train_hifigan.py, with its flags
 and defaults:
@@ -7,6 +8,7 @@ and defaults:
   python -m speech_inpainting_torch.cli.train_hifigan \\
       --wavs DIR [--filelist F] --checkpoint-path ckpt/ \\
       [--modified --kmeans model.npy --mask-len 20 --segment-size 44288]
+      [--istft]
 
 The generator starts from the JAX package's init drawn from `--seed` (the
 discriminators from seeds 1 and 2, as there), or from a reference `g_*`
@@ -16,9 +18,13 @@ reference names them: `g_{step:08d}` (`{"generator": state_dict}`, which
 `do_{step:08d}` (discriminators, optimizers, steps); a rerun resumes from
 the newest, and `--epochs` counts the epochs of each run. The real and
 fake batches run through the weight-normed discriminators as one forward
-(`batched_disc`), as the JAX CLI sets it. Runs on the CUDA card;
-`--device cpu` runs on the CPU. Not ported: `--istft` (a trainable iSTFT
-generator, ROADMAP Queue 1 item 9's rest) and the data-parallel flags
+(`batched_disc`), as the JAX CLI sets it. `--istft` trains a
+`WNISTFTGenerator` (the C8C8I trunk at the config's width, kernel sizes and
+dilations, then the n_fft 16 / hop 4 iSTFT head) from `--seed`; its g_
+holds that module's state dict, and its validation sweep folds it into
+the inference `ISTFTGenerator` (trunk in K1 on the card). It takes neither
+`--modified` nor `--warm-start`, as in the JAX CLI. Runs on the CUDA card;
+`--device cpu` runs on the CPU. Not ported: the data-parallel flags
 (`--mesh`, `--coordinator`, `--num-processes`, `--process-id`: ROADMAP
 Queue 1 item 11), which are refused.
 """
@@ -32,10 +38,12 @@ import numpy as np
 import torch
 
 from ..convert.hifigan_torch import load_trainable_generator
-from ..convert.from_jax import trainable_generator
+from ..convert.from_jax import (trainable_generator,
+                                trainable_istft_generator)
 from ..data.audio import load_wav, peak_normalize
 from ..device import resolve_device
 from ..models.hifigan import HiFiGANConfig
+from ..models.hifigan_istft import ISTFTGeneratorConfig
 from ..ops.mel import MODIFIED_MEL_22K
 from ..quantize.kmeans import KMeans
 from ..train.gan import GANConfig, create_gan_state, default_discriminators
@@ -136,7 +144,9 @@ def main(argv=None):
     p.add_argument("--input-mels-dir", default=None,
                    help="dir of <stem>.npy teacher mels")
     p.add_argument("--istft", action="store_true",
-                   help="iSTFT-head generator (not ported)")
+                   help="train the iSTFT-head generator family (iSTFTNet "
+                        "C8C8I trunk at the config's width) by the vanilla "
+                        "recipe")
     p.add_argument("--kmeans", default=None)
     p.add_argument("--mask-len", type=int, default=20)
     p.add_argument("--warm-start", default=None,
@@ -164,9 +174,11 @@ def main(argv=None):
         p.error("--mesh and the multi-host flags are not ported: the "
                 "PyTorch trainer runs one process on one device (ROADMAP "
                 "Queue 1 item 11)")
-    if args.istft:
-        p.error("--istft is not ported: a trainable ISTFTGenerator waits "
-                "(ROADMAP Queue 1 item 9, what is left)")
+    if args.istft and args.modified:
+        p.error("--istft is a vanilla-recipe family")
+    if args.istft and args.warm_start:
+        p.error("--warm-start loads V1-architecture torch checkpoints; the "
+                "iSTFT family trains fresh")
     if args.fine_tuning and args.modified:
         p.error("--fine-tuning is the teacher-mel vanilla recipe; "
                 "--modified quantizes in-graph")
@@ -178,6 +190,18 @@ def main(argv=None):
 
     h = json.loads(Path(args.config).read_text()) if args.config else {}
     gcfg = HiFiGANConfig.from_dict(h) if h else HiFiGANConfig()
+    icfg = None
+    if args.istft:
+        icfg = ISTFTGeneratorConfig(
+            upsample_initial_channel=gcfg.upsample_initial_channel,
+            resblock_kernel_sizes=gcfg.resblock_kernel_sizes,
+            resblock_dilation_sizes=gcfg.resblock_dilation_sizes,
+            in_dim=gcfg.in_dim, sampling_rate=gcfg.sampling_rate,
+            dtype=gcfg.dtype)
+        if icfg.total_upsample != gcfg.total_upsample:
+            p.error(f"the iSTFT geometry upsamples {icfg.total_upsample}x, "
+                    f"the config's mel hop is {gcfg.total_upsample}: it "
+                    "must keep the mel hop")
     seg = args.segment_size or h.get("segment_size",
                                      44288 if args.modified else 8192)
     tcfg = HiFiGANTrainConfig(
@@ -211,7 +235,11 @@ def main(argv=None):
         step = make_vanilla_step(tcfg)
         n441 = 0
 
-    if args.warm_start:
+    if icfg is not None:
+        gen = trainable_istft_generator(
+            icfg, device=device,
+            generator=torch.Generator().manual_seed(args.seed))
+    elif args.warm_start:
         gen = load_trainable_generator(args.warm_start, gcfg, device=device)
         print(f"warm-started generator from {args.warm_start}")
     else:

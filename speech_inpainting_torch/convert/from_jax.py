@@ -20,8 +20,10 @@ build. For the GAN trainer, `trainable_generator`, `mpd_from_jax` and
 `msd_from_jax` build the weight-normed generator and the discriminators
 (the MSD's `spectral` collection in its u/v buffers) from flax trees, and
 `generator_tree`, `mpd_tree`, `msd_tree` and `spectral_tree` read them
-back. Those modules carry the reference checkpoints' names, so each tree
-maps to and from a reference state dict (`reference_*_tree`,
+back; `trainable_istft_generator` and `istft_generator_tree` do the same
+for the iSTFT-head generator, whose tree has the `Generator` names over
+its trunk. Those modules carry the reference checkpoints' names, so each
+tree maps to and from a reference state dict (`reference_*_tree`,
 `_state_dict_of`), which convert/hifigan_torch.py's loaders read too.
 For the unit HiFi-GAN trainer, `trainable_codegen` builds a
 `WNCodeGenerator` from a JAX CodeGenerator's `params` and `vq` collection
@@ -41,7 +43,8 @@ from ..models.hifigan import (Generator, HiFiGANConfig,
                               MultiScaleDiscriminator, WNGenerator)
 from ..models.hifigan_fast import FastGenerator
 from ..models.jukebox import init_conv_stack_
-from ..models.hifigan_istft import ISTFTGenerator, ISTFTGeneratorConfig
+from ..models.hifigan_istft import (ISTFTGenerator, ISTFTGeneratorConfig,
+                                    WNISTFTGenerator)
 from ..models.hubert import (EncoderWithHead, HubertConfig, HubertModel,
                              init_flax_)
 from ..ops.conv import weight_norm_kernel
@@ -515,6 +518,21 @@ def trainable_generator(cfg: HiFiGANConfig, params: dict | None = None,
     return _loaded(module, params, device=device)
 
 
+def trainable_istft_generator(cfg: ISTFTGeneratorConfig,
+                              params: dict | None = None, device=None,
+                              generator: torch.Generator | None = None
+                              ) -> WNISTFTGenerator:
+    """The GAN trainer's `WNISTFTGenerator` on `device`, as
+    `trainable_generator` builds a `WNGenerator`: from `params` (a JAX
+    `ISTFTGenerator` tree) or, where None, from the JAX package's inits
+    drawn with `generator`."""
+    device = resolve_device(device)
+    module = WNISTFTGenerator(cfg, generator=generator)
+    if params is None:
+        return module.to(device)
+    return _loaded(module, params, device=device)
+
+
 def mpd_from_jax(params: dict | None = None, periods=(2, 3, 5, 7, 11),
                  dtype: torch.dtype = torch.float32, device=None,
                  generator: torch.Generator | None = None
@@ -553,6 +571,12 @@ def generator_tree(module: WNGenerator, of=lambda p: p) -> dict:
     parameters, or of `of(p)` for each parameter p (its `.grad`, an
     optimizer's moment of it)."""
     return reference_generator_tree(_named(module, of), module.cfg)
+
+
+def istft_generator_tree(module: WNISTFTGenerator, of=lambda p: p) -> dict:
+    """`module`'s JAX `ISTFTGenerator` tree, as `generator_tree`: the
+    `Generator` names over the trunk, conv_post n_fft + 2 wide."""
+    return generator_tree(module, of)
 
 
 def mpd_tree(module: MultiPeriodDiscriminator, of=lambda p: p) -> dict:

@@ -17,7 +17,8 @@ weight-normed convs as trainable modules (models/common.py) under the
 reference's names, its ResBlocks the plain torch chain (K1 and K2 have no
 backward, in the JAX package neither). `WNGenerator.fold()` returns the
 folded `Generator` (K2) or `FastGenerator` (K1) of its weights, as a `g_*`
-file of them loads. The discriminators (`MultiPeriodDiscriminator`,
+file of them loads; models/hifigan_istft.py's `WNISTFTGenerator` shares
+its trunk under another head. The discriminators (`MultiPeriodDiscriminator`,
 `MultiScaleDiscriminator`) are the JAX package's, with its four output
 lists and its `batched` knob: real and fake as one 2B forward through each
 weight-normed discriminator, never through the spectral-normed scale 0,
@@ -202,10 +203,12 @@ class WNGenerator(nn.Module):
     (ResBlock2), `conv_post`, each with weight_g/weight_v/bias. float32
     parameters, compute in cfg.dtype. Inits as the JAX package's: conv_pre
     torch's, ups, ResBlocks and conv_post N(0, 0.01), drawn from
-    `generator`."""
+    `generator`. `post_channels` is conv_post's width: 1 here, n_fft + 2
+    under the iSTFT head (models/hifigan_istft.py)."""
 
     def __init__(self, cfg: HiFiGANConfig,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 post_channels: int = 1):
         super().__init__()
         if cfg.resblock not in ("1", "2"):
             raise ValueError(f"resblock {cfg.resblock!r} is neither 1 nor 2")
@@ -227,11 +230,14 @@ class WNGenerator(nn.Module):
             for rk, rd in zip(cfg.resblock_kernel_sizes,
                               cfg.resblock_dilation_sizes):
                 self.resblocks.append(block(ch, rk, rd, dt, gen))
-        self.conv_post = WNConv1d(c0 // 2 ** len(cfg.upsample_rates), 1, 7,
-                                  padding=3, kernel_init="hifigan", dtype=dt,
+        self.conv_post = WNConv1d(c0 // 2 ** len(cfg.upsample_rates),
+                                  post_channels, 7, padding=3,
+                                  kernel_init="hifigan", dtype=dt,
                                   generator=gen)
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def trunk(self, mel: torch.Tensor) -> torch.Tensor:
+        """conv_pre, each upsampler and its multi-receptive-field fusion,
+        then the leaky ReLU before conv_post."""
         nk = len(self.cfg.resblock_kernel_sizes)
         x = self.conv_pre(mel)
         for i, up in enumerate(self.ups):
@@ -241,8 +247,10 @@ class WNGenerator(nn.Module):
                 out = self.resblocks[i * nk + j](x)
                 xs = out if xs is None else xs + out
             x = xs / nk
-        x = self.conv_post(F.leaky_relu(x, 0.01))  # torch's default slope
-        return torch.tanh(x)
+        return F.leaky_relu(x, 0.01)  # torch's default slope
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.conv_post(self.trunk(mel)))
 
     @torch.no_grad()
     def fold(self, cls: type | None = None) -> Generator:

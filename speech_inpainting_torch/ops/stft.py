@@ -129,8 +129,10 @@ def istft_overlap_add(spec_real: torch.Tensor, spec_imag: torch.Tensor, *,
     (center=True) semantics: spec_real, spec_imag (B, n_fft//2+1, F) →
     (B, (F−1)·hop) samples, n_fft//2 trimmed from both ends and the sum
     divided by the window-square envelope. One matrix product for the
-    inverse DFT, then n_fft/hop strided adds. Requires hop | n_fft (the
-    iSTFT head's n_fft 16 / hop 4)."""
+    inverse DFT, then n_fft/hop strided adds, which autograd carries (the
+    trainable iSTFT head backpropagates through them; the constants come
+    from `_istft_consts`, made outside inference mode). Requires hop |
+    n_fft (the iSTFT head's n_fft 16 / hop 4)."""
     assert n_fft % hop == 0, "hop must divide n_fft for the strided OLA"
     b, _, f = spec_real.shape
     dev, dtype = spec_real.device, spec_real.dtype

@@ -461,10 +461,12 @@ class NoiseLimits:
     rounding of its kink takes its slope by the rounding's sign and moves
     every gradient behind it, the whole of a narrow layer's bias. A tensor
     of more than NOISE_SMALL elements may hold max(least, floor(share ×
-    its size)) of them; a smaller one (a narrow conv's bias or gains,
-    whose noise moves it whole) is held by the excess alone."""
+    its size)) of them, each within `excess`; a smaller one (a narrow
+    conv's bias or gains, whose noise moves it whole) may hold all of
+    them, each within `small_excess`."""
     share: float
     excess: float
+    small_excess: float
     least: int = 0
 
 
@@ -473,7 +475,12 @@ class NoiseLimits:
 # steps and 7.0% on the card; the largest excess 46.1 (an MSD conv's v in
 # the modified recipe's span step) on the CPU and 13.9 on the card. Planted
 # faults (tests/test_torch_gan_gate.py) read 100% or an excess of 99 to ∞.
-NOISE = NoiseLimits(share=0.1, excess=100.0)
+# A tensor of at most 16 elements read an excess of at most 5.5 in the
+# gate test's reduced generator and 5.8 in tests/test_torch_istft_train.py's
+# modified step, and none was outside on the card; a 0.5% error in a
+# one-element bias reads ~50-58, which passed the 100 that held such a
+# tensor before.
+NOISE = NoiseLimits(share=0.1, excess=100.0, small_excess=20.0)
 NOISE_SMALL = 16
 # Tensors whose readings lie above NOISE.share, held by name and size to
 # their own share: the gate test's reduced generator (4 channels in its
@@ -514,19 +521,22 @@ def parity_gate(got: dict, want: dict, ref: dict,
     may hold max(limits.least, floor(share × its size)) outside elements,
     the share limits.share or, for a (name, size) in NOISE_HELD, its own;
     every outside element must lie within limits.excess × that tolerance
-    of `ref`. Outside elements that `exempt[name]` (a boolean mask) marks
-    are held instead to `bound`, their largest gap to `want`.
+    of `ref` (limits.small_excess × in a tensor of at most NOISE_SMALL
+    elements, which may hold any number). Outside elements that
+    `exempt[name]` (a boolean mask) marks are held instead to `bound`,
+    their largest gap to `want`.
 
     Returns {"f64": the tensors that needed the float64 gate, "outside":
     {name: elements outside, the exempt ones apart}, "exempt": {name:
     exempt elements outside}, "share_max": the largest share outside of a
     tensor of more than NOISE_SMALL elements, "excess_max": the largest
     gap to `ref` of a (not exempt) outside element over its tensor's
-    tolerance, "failed": the tensors past the share, the excess or the
-    bound, "ok"}."""
+    tolerance, "small_excess_max": the same over the tensors of at most
+    NOISE_SMALL elements, "failed": the tensors past the share, the excess
+    or the bound, "ok"}."""
     assert got.keys() == want.keys() == ref.keys()
     out = {"f64": [], "outside": {}, "exempt": {}, "share_max": 0.0,
-           "excess_max": 0.0, "failed": []}
+           "excess_max": 0.0, "small_excess_max": 0.0, "failed": []}
     for name in want:
         g, w, r = _f64(got[name]), _f64(want[name]), _f64(ref[name])
         gap = np.abs(g - w)
@@ -552,12 +562,15 @@ def parity_gate(got: dict, want: dict, ref: dict,
         out["outside"][name] = n
         worst = float(far[free].max() / tol) if tol else math.inf
         out["excess_max"] = max(out["excess_max"], worst)
-        allowed = w.size
+        allowed, limit = w.size, limits.small_excess
         if w.size > NOISE_SMALL:
             out["share_max"] = max(out["share_max"], n / w.size)
             share = NOISE_HELD.get((name, w.size), limits.share)
             allowed = max(limits.least, math.floor(share * w.size))
-        if n > allowed or worst > limits.excess:
+            limit = limits.excess
+        else:
+            out["small_excess_max"] = max(out["small_excess_max"], worst)
+        if n > allowed or worst > limit:
             out["failed"].append(name)
     out["ok"] = not out["failed"]
     return out

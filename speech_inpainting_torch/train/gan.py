@@ -35,6 +35,11 @@ update writes only the buffers, which no saved tensor of the graph
 aliases, so the D step between that forward and the G backward leaves the
 backward intact. With `skip_nonfinite` the codebooks are gated on their
 own finiteness (`guard.tree_if_finite`), as JAX gates `state.vq`.
+
+The generator is any trainable module: `WNGenerator`, the iSTFT head's
+`WNISTFTGenerator` (JAX's `generator=` override), or the unit trainer's
+`WNCodeGenerator`. `folded_mpd`, the JAX package's layout knob for the
+TPU, is refused: the port lays the MPD's period fold out one way.
 """
 from __future__ import annotations
 
@@ -47,7 +52,8 @@ from torch import nn
 
 from .. import losses
 from ..device import full_f32
-from ..models.hifigan import MultiPeriodDiscriminator, MultiScaleDiscriminator
+from ..models.hifigan import (Generator, MultiPeriodDiscriminator,
+                              MultiScaleDiscriminator)
 from ..models.hifigan_istft import ISTFTGenerator
 from .guard import SkipNonFinite, tree_if_finite
 from .optim import AdamW, exponential_decay
@@ -67,7 +73,7 @@ class GANConfig:
                                      # its optimizer (I_da: "fo_vqvae")
     batched_disc: bool = False       # (real, fake) as one 2B forward through
                                      # each weight-normed discriminator
-    folded_mpd: bool = False         # TPU layout knob: not ported
+    folded_mpd: bool = False         # TPU layout knob: refused
     skip_nonfinite: int = 0          # >0: never apply a nan/inf update; the
                                      # loop aborts past this many
                                      # consecutive skips
@@ -127,8 +133,9 @@ class GANTrainState:
 def _check(cfg: GANConfig) -> None:
     if cfg.folded_mpd:
         raise NotImplementedError(
-            "folded_mpd is a TPU layout knob that is not ported (ROADMAP "
-            "Queue 1 item 9, what is left)")
+            "folded_mpd is the JAX package's layout of the MPD's period "
+            "fold for the TPU; the port keeps the one layout (the same "
+            "parameters and losses): leave it off")
 
 
 def _adamw(cfg: GANConfig, params) -> AdamW:
@@ -155,10 +162,14 @@ def default_discriminators(cfg: GANConfig, device=None,
 
 def _check_modules(cfg: GANConfig, generator: nn.Module,
                    mpd: nn.Module, msd: nn.Module) -> None:
-    if isinstance(generator, ISTFTGenerator):
-        raise NotImplementedError(
-            "a trainable ISTFTGenerator (--istft) is not ported (ROADMAP "
-            "Queue 1 item 9, what is left)")
+    if isinstance(generator, Generator):
+        name = ("trainable_istft_generator"
+                if isinstance(generator, ISTFTGenerator)
+                else "trainable_generator")
+        raise ValueError(
+            f"{type(generator).__name__} is the inference form, with no "
+            f"trainable parameters: build the generator with "
+            f"convert/from_jax.py:{name}")
     for m in (*mpd.modules(), *msd.modules()):
         dt = getattr(m, "dtype", None)
         if isinstance(dt, torch.dtype) and (
@@ -177,9 +188,10 @@ def create_gan_state(cfg: GANConfig, generator: nn.Module,
     one for both discriminators (as the JAX package's {"mpd", "msd"}
     tree). The step trains these modules, whatever their periods and
     scales (the JAX package's mpd/msd overrides); the config's disc_bf16
-    must agree with the type they compute in, and an iSTFT generator is
-    refused. The generator's submodules named in cfg.frozen_g_paths are
-    frozen (requires_grad off) and left out of its optimizer; a name the
+    must agree with the type they compute in, and folded_mpd and an
+    inference generator (no trainable parameters) are refused. The
+    generator's submodules named in cfg.frozen_g_paths are frozen
+    (requires_grad off) and left out of its optimizer; a name the
     generator lacks freezes nothing, as in the JAX package (the joint
     regime's generator has no "fo_vqvae"). `rng`, a CPU
     torch.Generator, draws a stateful_vq step's restart candidates

@@ -12,9 +12,9 @@ Counterpart of speech_inpainting_tpu/train/hifigan.py:
 The pre-stage runs on the device inside the step, as in the JAX package:
 the host ships raw audio crops and mask starts. gen_fwd(generator, batch)
 runs the generator it is given: the step hands it the state's (a module
-is its parameters), so the JAX package's `generator=` override has no
-counterpart here; `create_gan_state` refuses the iSTFT generator, whose
-training (`--istft`) is not ported.
+is its parameters), so the JAX package's `generator=` override is the
+module handed to `create_gan_state`: a `WNISTFTGenerator` (--istft) trains
+by both recipes and their evals unchanged.
 """
 from __future__ import annotations
 

@@ -106,15 +106,17 @@ def gan_valid_fn(eval_fn: Callable, val_batches,
     """run_gan_training's valid_fn from a make_gan_eval product:
     valid_fn(state, logger=None, steps=0) → the per-metric means of
     eval_fn over `val_batches` (host batches). The state's generator is
-    folded once per sweep by its own `fold()` (a `WNGenerator` into a
-    `Generator`, a `WNCodeGenerator` into a `CodeGenerator`), so on the
-    card its ResBlock1s run in K2. The folded module carries every
-    codebook of the trained one, so the JAX package's `params_fn` (which
-    hands the eval the `vq` leg beside the parameters) has no counterpart
-    here. `media_fwd` (the eval's generator_fwd) logs the
-    first validation item's audio (at `sample_rate`) and, with `media_mel`
-    (a MelConfig), its mel figure, where the logger has a TensorBoard
-    writer (without one the JAX package runs that forward for nothing)."""
+    folded once per sweep by its own `fold()`, off autograd (a
+    `WNGenerator` into a `Generator` and a `WNCodeGenerator` into a
+    `CodeGenerator`, whose ResBlock1s run in K2 on the card; a
+    `WNISTFTGenerator` into an `ISTFTGenerator`, whose trunk runs in K1).
+    The folded module carries every codebook of the trained one, so the
+    JAX package's `params_fn` (which hands the eval the `vq` leg beside
+    the parameters) has no counterpart here. `media_fwd` (the eval's
+    generator_fwd) logs the first validation item's audio (at
+    `sample_rate`) and, with `media_mel` (a MelConfig), its mel figure,
+    where the logger has a TensorBoard writer (without one the JAX package
+    runs that forward for nothing)."""
     import torch
 
     from ..ops.mel import mel_spectrogram

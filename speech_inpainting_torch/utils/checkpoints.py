@@ -15,12 +15,15 @@ The GAN trainer's pair (`save_gan_checkpoint`, `restore_gan_checkpoint`):
 `g_{step:08d}` is `{"generator": state_dict}`: a `WNGenerator`'s under the
 reference's keys (legacy weight norm), which
 `convert.hifigan_torch.load_generator_checkpoint` reads as it reads a
-reference file (`vocode`, `predict_ea`), or a `WNCodeGenerator`'s, whose
-EMA codebooks ride in it as buffers (JAX's g_ carries the `vq` collection
-beside the parameters); `do_{step:08d}` holds the discriminators (the MSD's
-u/v among its buffers), both optimizers, `steps`, with the nonfinite guard
-its counters and, where the state has one, the restart candidates'
-generator state `rng` (JAX saves its PRNG key there). The restore is
+reference file (`vocode`, `predict_ea`), a `WNISTFTGenerator`'s under the
+same keys (conv_post n_fft + 2 wide; `load_state_dict` into
+`trainable_istft_generator(cfg)` reads it back), or a
+`WNCodeGenerator`'s, whose EMA codebooks ride in it as buffers (JAX's g_
+carries the `vq` collection beside the parameters); `do_{step:08d}` holds
+the discriminators (the MSD's u/v among its buffers), both optimizers,
+`steps`, with the nonfinite guard its counters and, where the state has
+one, the restart candidates' generator state `rng` (JAX saves its PRNG key
+there). The restore is
 partial as in the JAX package: the newest `g_` and the newest `do_` are
 each loaded where found.
 """

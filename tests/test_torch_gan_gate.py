@@ -9,6 +9,8 @@ passes; with each fault one fails. Run
 with `-s`, each case prints each gate's largest share outside and largest
 excess (and the fault-free case each tensor's count outside): the planted
 side of the readings and the noise that testing.NOISE is set between.
+The faults that earlier limits let through are held to those limits too,
+to show that they did.
 """
 import re
 
@@ -51,11 +53,21 @@ FAULTS = {
     "mpd_conv_half_shifted_5e-3": (
         r"mpd\.discriminators\.0\.convs\.1\.weight_v$",
         _first_half_shifted(5e-3)),
+    # the one that the limits before small_excess let through: a tensor of
+    # at most 16 elements off by an excess under 100
+    "conv_post_bias_off_by_5e-3": (r"generator\.conv_post\.bias$", 1.005),
 }
 # the limits before NoiseLimits: max(16, half) of a tensor's elements
 # outside, each within 1000 × its tolerance
-OLD = testing.NoiseLimits(share=0.5, excess=1000.0, least=16)
-PASSED_OLD = ("conv_post_bias_off_by_5e-2", "mpd_conv_half_shifted_5e-3")
+OLD = testing.NoiseLimits(share=0.5, excess=1000.0, small_excess=1000.0,
+                          least=16)
+PASSED_OLD = ("conv_post_bias_off_by_5e-2", "mpd_conv_half_shifted_5e-3",
+              "conv_post_bias_off_by_5e-3")
+# the limits before small_excess: a tensor of at most 16 elements held to
+# the excess of the larger ones, 100 × its tolerance
+BEFORE_SMALL = testing.NoiseLimits(share=0.1, excess=100.0,
+                                   small_excess=100.0)
+PASSED_BEFORE_SMALL = ("conv_post_bias_off_by_5e-3",)
 
 
 @pytest.fixture(scope="module")
@@ -87,7 +99,8 @@ def test_gate_fails_on_planted_faults(jax_step, fault):
         out.append(step(state, b)[0])
     reps = step_gates(js, *out)
     print(fault, {what: (rep["share_max"], rep["excess_max"],
-                         rep["failed"]) for what, rep in reps.items()})
+                         rep["small_excess_max"], rep["failed"])
+                  for what, rep in reps.items()})
     if fault == "none":     # the readings NOISE and NOISE_HELD are set by
         print("outside both gates:", {what: rep["outside"]
                                       for what, rep in reps.items()})
@@ -99,3 +112,9 @@ def test_gate_fails_on_planted_faults(jax_step, fault):
                                            rep["excess_max"], rep["failed"])
                                     for what, rep in old.items()})
         assert all(rep["ok"] for rep in old.values())
+    if fault in PASSED_BEFORE_SMALL:
+        before = step_gates(js, *out, limits=BEFORE_SMALL)
+        print(fault, "limits before small_excess",
+              {what: (rep["small_excess_max"], rep["failed"])
+               for what, rep in before.items()})
+        assert all(rep["ok"] for rep in before.values())

@@ -192,11 +192,13 @@ def check_step(js, jm, ps, pm, ref, lr=2e-4):
     noisy, worst = {}, {}
     for what, rep in step_gates(js, ps, ref, lr).items():
         assert rep["ok"], (what, rep["failed"], rep["outside"])
-        worst[what] = (rep["share_max"], rep["excess_max"])
+        worst[what] = (rep["share_max"], rep["excess_max"],
+                       rep["small_excess_max"])
         noisy.update({f"{what} {k}": n for k, n in rep["outside"].items()})
         noisy.update({f"{what} {k} (exempt)": n
                       for k, n in rep["exempt"].items()})
-    print("largest share outside both gates, largest excess:", worst)
+    print("largest share outside both gates, largest excess (and in a "
+          "tensor of at most 16 elements):", worst)
     for popt, jopt in ((ps.g_opt, js.g_opt), (ps.d_opt, js.d_opt)):
         counts = {s["step"] for s in popt.state.values()}
         assert counts == {int(_inner(jopt)[0].count)}
@@ -348,12 +350,16 @@ def test_adamw_schedule_matches_optax(rng):
 
 def test_config_refusals():
     jcfg, pcfg = configs()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pgan.default_discriminators(dataclasses.replace(
-            pcfg.gan, folded_mpd=True), "cpu")
-    # the config's disc_bf16 against the type the discriminators compute in
     mpd, msd, *_ = discs()
     gen = trainable_generator(pcfg.hifigan, trees()[0], device="cpu")
+    # folded_mpd, the JAX package's TPU layout of the period fold, is
+    # refused wherever a config reaches the trainer
+    folded = dataclasses.replace(pcfg.gan, folded_mpd=True)
+    with pytest.raises(NotImplementedError, match="folded_mpd"):
+        pgan.default_discriminators(folded, "cpu")
+    with pytest.raises(NotImplementedError, match="folded_mpd"):
+        pgan.create_gan_state(folded, gen, mpd, msd)
+    # the config's disc_bf16 against the type the discriminators compute in
     bf16 = dataclasses.replace(pcfg.gan, disc_bf16=True)
     with pytest.raises(ValueError, match="disc_bf16"):
         pgan.create_gan_state(bf16, gen, mpd, msd)
@@ -362,8 +368,15 @@ def test_config_refusals():
             bf16, "cpu"))
     pgan.create_gan_state(bf16, gen, *pgan.default_discriminators(
         bf16, "cpu"))
+    # the inference iSTFT generator is refused by name; the trainable one
+    # is taken
+    from speech_inpainting_torch.convert.from_jax import (
+        trainable_istft_generator)
     from speech_inpainting_torch.models.hifigan_istft import (
         ISTFTGenerator, ISTFTGeneratorConfig)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pgan.create_gan_state(pcfg.gan, ISTFTGenerator(
-            ISTFTGeneratorConfig(upsample_initial_channel=16)), mpd, msd)
+    icfg = ISTFTGeneratorConfig(upsample_initial_channel=16)
+    with pytest.raises(ValueError, match="trainable_istft_generator"):
+        pgan.create_gan_state(pcfg.gan, ISTFTGenerator(icfg), mpd, msd)
+    state = pgan.create_gan_state(
+        pcfg.gan, trainable_istft_generator(icfg, device="cpu"), mpd, msd)
+    assert state.g_parameters() == list(state.generator.parameters())

@@ -29,7 +29,11 @@ def test_every_module_imports_with_jax_blocked():
             "speech_inpainting_torch.cli.train_da",
             "speech_inpainting_torch.infer.aot",
             "speech_inpainting_torch.cli.export_aot",
-            "speech_inpainting_torch.ops.int8"} <= set(_port_modules())
+            "speech_inpainting_torch.ops.int8",
+            "speech_inpainting_torch.utils.timing",
+            "speech_inpainting_torch.utils.profiling",
+            "speech_inpainting_torch.utils.config",
+            "speech_inpainting_torch.data.download"} <= set(_port_modules())
     blocked = "".join(f"sys.modules[{b!r}] = None\n" for b in BANNED)
     code = (f"import sys\n{blocked}import importlib, pickle\n"
             f"for m in {_port_modules()!r}:\n"
@@ -158,6 +162,8 @@ def test_entry_points_refuse_the_cpu_unasked():
                                                    save_serving_artifact)
     from speech_inpainting_torch.models.hubert import (
         extract_features_chunked)
+    from speech_inpainting_torch.convert.from_jax import (
+        trainable_istft_generator)
     assert resolve_device("cpu").type == "cpu"
     cg = CodeGeneratorConfig(HiFiGANConfig(), use_f0=False)
     for call in (lambda: resolve_device(),
@@ -227,7 +233,10 @@ def test_entry_points_refuse_the_cpu_unasked():
                  lambda: extract_features_chunked(None, np.zeros(400)),
                  lambda: export_aot.main([
                      "--hubert-checkpoint", "h", "--hifigan-checkpoint",
-                     "g", "--kmeans", "k", "--out", "o"])):
+                     "g", "--kmeans", "k", "--out", "o"]),
+                 lambda: trainable_istft_generator(ISTFTGeneratorConfig()),
+                 lambda: train_hifigan.main(["--wavs", ".", "--istft",
+                                             "--checkpoint-path", "c"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

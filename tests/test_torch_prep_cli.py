@@ -2,7 +2,8 @@
 and pad, ops/mel.py's HTK filterbank and full-band 16 kHz preset,
 data/wav2mel.py, utils/kaldi.py) against the JAX package's, on the CPU.
 
-Each prep subcommand but `download` runs in both CLIs on one tiny corpus
+Each prep subcommand but `download` (test_torch_download.py) runs in both
+CLIs on one tiny corpus
 written to a temporary directory, and the files are compared: the wavs,
 manifests, splits, unit files and summaries byte for byte; features and
 f0 statistics within float32 rounding (rtol 1e-5, atol 1e-5 of features
@@ -258,5 +259,9 @@ def test_prep_subcommands_write_what_jax_writes(raw, tmp_path, monkeypatch,
                 == _files(out["j"] / f"splits_{regime}"))
     said = both("summary", "--dest", "{side}/splits_both")
     assert said["p"] == said["j"] and "common unique speakers" in said["p"]
-    with pytest.raises(SystemExit):
-        pprep.main(["download", "--dataset", "VCTK"])
+    # `download` is held against JAX's in test_torch_download.py; here,
+    # with --skip-download and no archive under --root, it fetches nothing
+    # and fails on the missing archive
+    with pytest.raises(FileNotFoundError):
+        pprep.main(["download", "--dataset", "VCTK", "--root",
+                    str(tmp_path / "corpora"), "--skip-download"])

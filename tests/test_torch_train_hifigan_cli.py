@@ -4,9 +4,12 @@ dataset's batches bit-equal to the JAX package's in its three regimes
 utterances padded); the CLI with a tiny `--config` and `--device cpu` in
 the vanilla, modified and teacher-mel regimes (g_/do_ written, the g_
 read by `load_generator_checkpoint`), a rerun that resumes 2 → 4,
-`--warm-start` from a reference-layout g_ file, and the refusals of
-`--istft`, `--mesh` and the distributed flags, naming their ROADMAP
-items."""
+`--warm-start` from a reference-layout g_ file, `--istft` (the iSTFT-head
+generator: 2 steps and a validation sweep, resumed 2 → 4, its g_ loaded
+back into `trainable_istft_generator` equal to the trained module), and
+the refusals of `--istft` beside `--modified` or `--warm-start` (with the
+JAX CLI's reasons), `--mesh` and the distributed flags (naming their
+ROADMAP item)."""
 import json
 import shutil
 
@@ -150,8 +153,51 @@ def _paths(tree, out=None):
     return out
 
 
+def test_cli_istft_with_validation_and_resume(files, tmp_path, capsys,
+                                              monkeypatch):
+    from speech_inpainting_torch.convert.from_jax import (
+        trainable_istft_generator)
+    from speech_inpainting_torch.models.hifigan_istft import (
+        ISTFTGenerator, ISTFTGeneratorConfig, WNISTFTGenerator)
+    folds = []
+    fold = WNISTFTGenerator.fold
+    monkeypatch.setattr(WNISTFTGenerator, "fold",
+                        lambda self: folds.append(1) or fold(self))
+    ckpt = tmp_path / "ck"
+    args = _args(files, ckpt, "--istft", "--valid-filelist",
+                 str(files / "valid.txt"), "--validation-interval", "2")
+    first = train_hifigan.main(args)
+    assert isinstance(first.generator, WNISTFTGenerator)
+    assert first.step == 2
+    second = train_hifigan.main(args)
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert second.step == 4
+    assert len(folds) == 2          # one validation sweep in each run
+    assert sorted(p.name for p in ckpt.iterdir()) == [
+        "do_00000002", "do_00000004", "g_00000002", "g_00000004"]
+    # the C8C8I trunk at the config's width, kernel sizes and dilations
+    icfg = ISTFTGeneratorConfig(upsample_initial_channel=16,
+                                resblock_kernel_sizes=(3,),
+                                resblock_dilation_sizes=((1, 3),))
+    assert second.generator.istft == icfg
+    loaded = trainable_istft_generator(icfg, device="cpu")
+    loaded.load_state_dict(torch.load(ckpt / "g_00000004",
+                                      weights_only=True)["generator"])
+    for (n, a), (m, b) in zip(loaded.state_dict().items(),
+                              second.generator.state_dict().items()):
+        assert n == m and torch.equal(a, b), n
+    folded = loaded.fold()
+    assert isinstance(folded, ISTFTGenerator)
+    mel = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (1, 80, 6)).astype(np.float32))
+    with torch.no_grad():
+        assert torch.equal(folded(mel), second.generator.fold()(mel))
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--istft"], "item 9"), (["--mesh"], "item 11"),
+    (["--istft", "--modified", "--kmeans", "k.npy"], "vanilla-recipe"),
+    (["--istft", "--warm-start", "g_00000001"], "trains fresh"),
+    (["--mesh"], "item 11"),
     (["--coordinator", "localhost:1"], "item 11"),
     (["--num-processes", "2"], "item 11"),
     (["--process-id", "0"], "item 11")])
