@@ -245,7 +245,30 @@ it stopped); any failure raises and exits non-zero:
                 of 90 K2 launches each, then one I_da utterance through the
                 CodeGenerator it trained (180 K2 launches, kernel vs plain
                 path), and K2 against its plain version at the sweep's
-                shapes.
+                shapes;
+  dist_world1   the trainers' `--mesh` at world size 1 over NCCL on the
+                card (a process group of one on a free localhost port):
+                `train_hifigan --modified` (configs/hifigan_ft_modified.json,
+                full width, B = 16 × 44 288, f32, 2 steps and a sweep of 72
+                K2 launches) held against the same run without --mesh by
+                testing.parity_gate, and `train_ea` with HuBERT-large (B =
+                16 × 5 s, bf16, 2 steps, on train_ea_cli's corpus) whose
+                first step's reduced gradients are within 1e-2 of the
+                largest of its run without, and their norm before the
+                clip within 1e-2 of its; ms per step of each (CUDA events
+                around the CLI's step); no group left after;
+  dist_world2_one_card  two worker processes (`--dist-worker`) on the one
+                card in a gloo group: the I_ea step (HuBERT-base, 8 rows a
+                rank of B = 16 × 5 s, f32, 2 steps: losses summed over the
+                ranks) and the V1 GAN step (8 rows a rank of 16 × 8192, the
+                full MPD/MSD, parity_gate; each rank's validation sweep of
+                72 K2) against the world-1 step on all rows, and
+                `InformedInpainter(mesh=)` at full width on B = 8 × 4 s (72
+                K1 a rank; waveforms within 1e-4 of world 1, labels
+                equal);
+  tp_world2_one_card  in the same workers, HuBERT-base split by
+                parallel/tp.py over ("dp", 1) × ("tp", 2), its head output
+                within 1e-3 of the unsharded module's.
 Then the `spills` and `kernels` lines (K1's and K2's launches on each
 path), and last {"ok": true, "device": {...}}.
 
@@ -3264,9 +3287,9 @@ def phase_ea_train(torch) -> dict:
     return row
 
 
-def phase_train_ea_cli(torch) -> dict:
+def phase_train_ea_cli(torch, d: Path) -> dict:
     """`train_ea.main` and then `predict_ea.main` on the card, as a user
-    runs them, on files written to a temporary directory: 32 synthetic
+    runs them, on files written to the directory d: 32 synthetic
     5 s 16 kHz wavs with their `_labels.npy`, train and valid splits, a
     100 × 80 .npy codebook, an HF HuBERT-large directory (config.json +
     pytorch_model.bin) and a V1 `g_*` file. `--hubert-type large
@@ -3276,9 +3299,11 @@ def phase_train_ea_cli(torch) -> dict:
     `predict_ea --hubert-checkpoint last_00000000` with labels (three
     vocoder calls, 216 K1 launches). Checks: every checkpoint and artifact
     written, the resume, K1's launches, and the head's output from `last_`
-    equal to the trained module's in memory (atol 1e-6, f32)."""
+    equal to the trained module's in memory (atol 1e-6, f32). The corpus,
+    the codebook and the HF directory stay in d for `dist_world1`; the
+    checkpoints and predictions go at the end."""
     import importlib.util
-    import tempfile
+    import shutil
     from scipy.io import wavfile
     from speech_inpainting_torch.cli import predict_ea, train_ea
     from speech_inpainting_torch.device import full_f32
@@ -3295,70 +3320,68 @@ def phase_train_ea_cli(torch) -> dict:
     rng = np.random.default_rng(SEED + 160)
     hcfg = HubertConfig.large()
     t_start = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        d = Path(tmp)
-        (d / "wavs").mkdir()
-        (d / "labels").mkdir()
-        names = [f"utt{i:02d}" for i in range(32)]
-        for n in names:
-            wavfile.write(d / "wavs" / f"{n}.wav", 16000, (
-                synthetic_utterance(rng, 5.0) * 32767).astype(np.int16))
-            np.save(d / "labels" / f"{n}_labels.npy",
-                    rng.integers(0, 100, 249).astype(np.int32))
-        (d / "train.txt").write_text("\n".join(names) + "\n")
-        (d / "valid.txt").write_text("\n".join(names[:4]) + "\n")
-        np.save(d / "km.npy", rng.standard_normal((100, 80)
-                                                  ).astype(np.float32))
-        write_hf_hubert(d / "hf", _trained_like(hubert_model_tree(hcfg,
-                                                                  rng), rng),
-                        hcfg)
-        gcfg = HiFiGANConfig()
-        torch.save({"generator": generator_state_dict(
-            generator_tree(gcfg, rng), gcfg)}, d / "g_00000001")
-        w22 = synthetic_batch(rng, 1, 4.0)[0][0]
-        wavfile.write(d / "utt.wav", 22050, (w22 * 32767).astype(np.int16))
-        np.save(d / "pred_labels.npy", rng.integers(0, 100, 200))
-        setup_s = time.perf_counter() - t_start
-        common = ["--wavs", str(d / "wavs"), "--split", str(d / "train.txt"),
-                  "--valid-split", str(d / "valid.txt"), "--labels-dir",
-                  str(d / "labels"), "--kmeans", str(d / "km.npy"),
-                  "--checkpoint-path", str(d / "ckpt"), "--hubert-type",
-                  "large", "--pretrained", str(d / "hf"), "--batch-size",
-                  "16", "--epochs", "1", "--device", "cuda"]
-        t0 = time.perf_counter()
-        first = train_ea.main(common)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        first_step = first.step
-        after_first = sorted(p.name for p in (d / "ckpt").iterdir())
-        del first
-        t0 = time.perf_counter()
-        second = train_ea.main(common + ["--f32"])
-        torch.cuda.synchronize()
-        second_s = time.perf_counter() - t0
-        ckpts = sorted(p.name for p in (d / "ckpt").iterdir())
-        # the head's output from last_ against the module in memory, f32
-        wav = torch.as_tensor(synthetic_utterance(rng, 2.0),
-                              device="cuda")[None]
-        loaded = predict_ea.load_trained_hubert(
-            d / "ckpt" / "last_00000000", hcfg, "cuda")
-        with torch.no_grad(), full_f32():
-            head_gap = (loaded(wav) - second.model(wav)).abs().max().item()
-        end_step = second.step
-        del second, loaded
-        fused_resblock1.launches = 0
-        t0 = time.perf_counter()
-        predict_ea.main(["--wav", str(d / "utt.wav"), "--start-sec", "1.5",
-                         "--end-sec", "1.7", "--labels",
-                         str(d / "pred_labels.npy"), "--hubert-checkpoint",
-                         str(d / "ckpt" / "last_00000000"), "--hubert-type",
-                         "large", "--hifigan-checkpoint",
-                         str(d / "g_00000001"), "--kmeans",
-                         str(d / "km.npy"), "--out", str(d / "pred"),
-                         "--device", "cuda"], figures=figures)
-        predict_s = time.perf_counter() - t0
-        launches = fused_resblock1.launches
-        written = sorted(p.name for p in (d / "pred" / "utt").iterdir())
+    (d / "wavs").mkdir()
+    (d / "labels").mkdir()
+    names = [f"utt{i:02d}" for i in range(32)]
+    for n in names:
+        wavfile.write(d / "wavs" / f"{n}.wav", 16000, (
+            synthetic_utterance(rng, 5.0) * 32767).astype(np.int16))
+        np.save(d / "labels" / f"{n}_labels.npy",
+                rng.integers(0, 100, 249).astype(np.int32))
+    (d / "train.txt").write_text("\n".join(names) + "\n")
+    (d / "valid.txt").write_text("\n".join(names[:4]) + "\n")
+    np.save(d / "km.npy", rng.standard_normal((100, 80)).astype(np.float32))
+    write_hf_hubert(d / "hf", _trained_like(hubert_model_tree(hcfg, rng),
+                                            rng), hcfg)
+    gcfg = HiFiGANConfig()
+    torch.save({"generator": generator_state_dict(
+        generator_tree(gcfg, rng), gcfg)}, d / "g_00000001")
+    w22 = synthetic_batch(rng, 1, 4.0)[0][0]
+    wavfile.write(d / "utt.wav", 22050, (w22 * 32767).astype(np.int16))
+    np.save(d / "pred_labels.npy", rng.integers(0, 100, 200))
+    setup_s = time.perf_counter() - t_start
+    common = ["--wavs", str(d / "wavs"), "--split", str(d / "train.txt"),
+              "--valid-split", str(d / "valid.txt"), "--labels-dir",
+              str(d / "labels"), "--kmeans", str(d / "km.npy"),
+              "--checkpoint-path", str(d / "ckpt"), "--hubert-type",
+              "large", "--pretrained", str(d / "hf"), "--batch-size",
+              "16", "--epochs", "1", "--device", "cuda"]
+    t0 = time.perf_counter()
+    first = train_ea.main(common)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first_step = first.step
+    after_first = sorted(p.name for p in (d / "ckpt").iterdir())
+    del first
+    t0 = time.perf_counter()
+    second = train_ea.main(common + ["--f32"])
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    ckpts = sorted(p.name for p in (d / "ckpt").iterdir())
+    # the head's output from last_ against the module in memory, f32
+    wav = torch.as_tensor(synthetic_utterance(rng, 2.0),
+                          device="cuda")[None]
+    loaded = predict_ea.load_trained_hubert(
+        d / "ckpt" / "last_00000000", hcfg, "cuda")
+    with torch.no_grad(), full_f32():
+        head_gap = (loaded(wav) - second.model(wav)).abs().max().item()
+    end_step = second.step
+    del second, loaded
+    fused_resblock1.launches = 0
+    t0 = time.perf_counter()
+    predict_ea.main(["--wav", str(d / "utt.wav"), "--start-sec", "1.5",
+                     "--end-sec", "1.7", "--labels",
+                     str(d / "pred_labels.npy"), "--hubert-checkpoint",
+                     str(d / "ckpt" / "last_00000000"), "--hubert-type",
+                     "large", "--hifigan-checkpoint",
+                     str(d / "g_00000001"), "--kmeans",
+                     str(d / "km.npy"), "--out", str(d / "pred"),
+                     "--device", "cuda"], figures=figures)
+    predict_s = time.perf_counter() - t0
+    launches = fused_resblock1.launches
+    written = sorted(p.name for p in (d / "pred" / "utt").iterdir())
+    for out in ("ckpt", "pred"):
+        shutil.rmtree(d / out)
     want = ["orig.wav", "masked.wav", "hifi_masked.wav", "inpainted.wav",
             "expected_inpaint.wav"]
     if figures:
@@ -5242,6 +5265,519 @@ def phase_train_da_cli(torch, ida, d: Path) -> dict:
     return {**row, "kernel_check": errs, "validation_path": path}
 
 
+# ---------------------------------------------------------------- scale-out
+
+DIST_LR_STEPS = 2     # steps of each run the scale-out phases compare
+EA_DIST_B = 16        # the I_ea trainer's global batch (the CLI's default)
+
+
+def _event_timed(make, log: list, after=None):
+    """make(...) → a step wrapped in CUDA events, each (start, end,
+    metrics) appended to `log`: the ms per step of a run the CLI drives,
+    and what the step returned; after(state), where given, is called after
+    each step, outside the events."""
+    import torch
+
+    def wrapped(*args, **kw):
+        step = make(*args, **kw)
+
+        def timed(state, batch):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            state, metrics = step(state, batch)
+            b.record()
+            log.append((a, b, metrics))
+            if after is not None:
+                after(state)
+            return state, metrics
+        return timed
+    return wrapped
+
+
+def _cli_run(torch, module, attr: str, argv: list, after=None) -> tuple:
+    """module.main(argv) with module.<attr> (its step builder) timed by
+    CUDA events (and `after` called after each step): (state, [ms per
+    step], [metrics per step], host seconds)."""
+    log = []
+    orig = getattr(module, attr)
+    setattr(module, attr, _event_timed(orig, log, after))
+    t0 = time.perf_counter()
+    try:
+        state = module.main(argv)
+    finally:
+        setattr(module, attr, orig)
+    torch.cuda.synchronize()
+    return (state, [a.elapsed_time(b) for a, b, _ in log],
+            [{k: float(v) for k, v in m.items()} for _, _, m in log],
+            time.perf_counter() - t0)
+
+
+def _first_step_rel(runs: dict) -> float:
+    """The largest relative gap between the two runs' first-step metrics
+    (the same parameters and batch: the mesh must not change them)."""
+    a, b = runs["mesh"]["metrics"][0], runs["plain"]["metrics"][0]
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b)
+
+
+def _param_gap(a, b, skip: str = NOISY) -> tuple:
+    """Largest |a − b| over two modules' parameters (of the same names),
+    those ending in `skip` (a zero-gradient tensor: rounding noise that
+    AdamW turns into ±lr) apart: (gap, its tensor, the skipped gap)."""
+    pb = dict(b.named_parameters())
+    gap, where, skipped = 0.0, None, 0.0
+    for n, p in a.named_parameters():
+        g = float((p.detach().float() - pb[n].detach().float()).abs().max())
+        if n.endswith(skip):
+            skipped = max(skipped, g)
+        elif g > gap:
+            gap, where = g, n
+    return gap, where, skipped
+
+
+def _group() -> tuple:
+    """(backend, world size) of this process's group, (None, 0) without
+    one."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return None, 0
+    return dist.get_backend(), dist.get_world_size()
+
+
+EA_W1_GRAD_REL = 1e-2   # dist_world1's I_ea step-1 gradients, mesh vs plain
+
+
+def phase_dist_world1(torch, ea_corpus: Path) -> dict:
+    """The trainers' `--mesh` at world size 1 over NCCL on the card: with
+    no launcher and no --coordinator, `--mesh` joins a process group of
+    one (parallel.distributed.join_world_of_one, tcp://127.0.0.1:<free
+    port>), so each step runs its gradient all_reduces, metric reduction
+    and the runner's placement through NCCL; the CLI leaves the group when
+    it ends. `train_hifigan --modified` on configs/hifigan_ft_modified
+    .json at full width (V1 and the full MPD/MSD, B = 16 × 44 288, f32,
+    --validation-interval 2: 2 steps and a sweep of 72 K2 launches) with
+    and without --mesh, the states held by testing.parity_gate (`_gan_gaps`,
+    the run without the mesh as reference); `train_ea --hubert-type large
+    --pretrained DIR` (B = 16 × 5 s, bf16, 2 steps, on `train_ea_cli`'s
+    corpus and HF directory, `ea_corpus`) with and without --mesh, the
+    first step's reduced gradients (the same parameters and batch) within
+    EA_W1_GRAD_REL of the largest gradient, after the clip, and their
+    global norm before it within EA_W1_GRAD_REL of the plain run's (the
+    clip to 10 rescales a summed loss's gradients alike, so only the norm
+    before it shows a reduction that scaled them all): bf16 keeps 8
+    significant bits (3.9e-3 of an element) and the card's bf16 attention
+    and convolution backward are not deterministic, while a gradient that
+    the reduction halved, zeroed or moved reads 0.5 or more. The parameters after 2
+    steps are printed, not held: AdamW moves an element by about lr a step
+    whatever its gradient, so two runs differ by at most a few lr. Both
+    trainers' first-step metrics within rel 1e-5. Each step's ms by CUDA
+    events around the CLI's own step: the difference is what the
+    collectives cost at world size 1."""
+    import tempfile
+    from speech_inpainting_torch.cli import train_ea, train_hifigan
+    from speech_inpainting_torch.ops.resblock import fused_resblock_step
+    from speech_inpainting_torch.testing import synthetic_batch
+    from speech_inpainting_torch.train import ea as ea_step
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 300)
+    gan, ea, groups = {}, {}, set()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        (d / "wavs22").mkdir()
+        wavs = synthetic_batch(rng, 48, 3.0)[0]
+        names = [f"utt{i:02d}" for i in range(48)]
+        for n, w in zip(names, wavs):
+            _write_wav(d / "wavs22" / f"{n}.wav", w, GAN_SR)
+        (d / "train22.txt").write_text("\n".join(names[:32]) + "\n")
+        (d / "valid22.txt").write_text("\n".join(names[32:]) + "\n")
+        np.save(d / "km.npy", rng.standard_normal((100, 80)).astype(
+            np.float32) - 5.0)
+        gan_cmd = ["--wavs", str(d / "wavs22"), "--filelist",
+                   str(d / "train22.txt"), "--valid-filelist",
+                   str(d / "valid22.txt"), "--config", str(GAN_CONFIG),
+                   "--modified", "--kmeans", str(d / "km.npy"),
+                   "--batch-size", "16", "--epochs", "1",
+                   "--validation-interval", "2", "--device", "cuda"]
+        for name, extra in (("plain", []), ("mesh", ["--mesh"])):
+            fused_resblock_step.launches = 0
+            seen = []
+            state, ms, metrics, secs = _cli_run(
+                torch, train_hifigan, "make_modified_step",
+                gan_cmd + ["--checkpoint-path", str(d / f"gan_{name}"),
+                           *extra], after=lambda s: seen.append(_group()))
+            if extra:
+                groups.update(seen)
+            gan[name] = {"tensors": _gan_tensors(torch, state),
+                         "end_step": state.step,
+                         "on_mesh": state.mesh is not None,
+                         "validation_k2_launches":
+                             fused_resblock_step.launches,
+                         "ms_per_step": ms, "metrics": metrics,
+                         "seconds": secs,
+                         "checkpoints": sorted(p.name for p in (
+                             d / f"gan_{name}").iterdir())}
+            del state
+        gaps = _gan_gaps(gan["mesh"]["tensors"], gan["plain"]["tensors"],
+                         gan["plain"]["tensors"])
+        for r in gan.values():
+            del r["tensors"]
+
+        e = ea_corpus
+        ea_cmd = ["--wavs", str(e / "wavs"), "--split",
+                  str(e / "train.txt"), "--labels-dir", str(e / "labels"),
+                  "--kmeans", str(e / "km.npy"), "--hubert-type", "large",
+                  "--pretrained", str(e / "hf"), "--batch-size",
+                  str(EA_DIST_B), "--epochs", "1", "--device", "cuda"]
+        models, grads, norms = {}, {}, {}
+        clip = ea_step.clip_by_global_norm_
+        for name, extra in (("plain", []), ("mesh", ["--mesh"])):
+            first, seen, norm = {}, [], []
+
+            def after(state, first=first, seen=seen):
+                seen.append(_group())
+                if not first:            # step 1's reduced, clipped grads
+                    first.update({n: p.grad.detach().float().clone()
+                                  for n, p in state.model.named_parameters()
+                                  if p.grad is not None})
+
+            def norm_then_clip(grads, max_norm, norm=norm):
+                # the clip rescales every gradient alike: the global norm
+                # before it shows a reduction that scaled them all
+                if not norm:
+                    norm.append(float(torch.linalg.vector_norm(torch.stack(
+                        [torch.linalg.vector_norm(g.float())
+                         for g in grads if g is not None]))))
+                clip(grads, max_norm)
+
+            ea_step.clip_by_global_norm_ = norm_then_clip
+            try:
+                state, ms, metrics, secs = _cli_run(
+                    torch, train_ea, "make_train_step",
+                    ea_cmd + ["--checkpoint-path", str(d / f"ea_{name}"),
+                              *extra], after=after)
+            finally:
+                ea_step.clip_by_global_norm_ = clip
+            if extra:
+                groups.update(seen)
+            models[name], grads[name], norms[name] = state.model, first, \
+                norm[0]
+            ea[name] = {"end_step": state.step,
+                        "on_mesh": state.mesh is not None,
+                        "ms_per_step": ms, "metrics": metrics,
+                        "seconds": secs,
+                        "checkpoints": sorted(p.name for p in (
+                            d / f"ea_{name}").iterdir())}
+            del state
+        ea_gap, ea_where, ea_noise = _param_gap(models["mesh"],
+                                                models["plain"])
+        del models
+        plain, mesh = grads.pop("plain"), grads.pop("mesh")
+        top = max(float(g.abs().max()) for g in plain.values())
+        grad_rel = max(float((mesh[n] - g).abs().max())
+                       for n, g in plain.items()) / top
+        same_grads = set(mesh) == set(plain)
+        del plain, mesh
+        norm_rel = abs(norms["mesh"] - norms["plain"]) / norms["plain"]
+    gan_rel, ea_rel = _first_step_rel(gan), _first_step_rel(ea)
+    left = _group()
+    ok = (groups == {("nccl", 1)} and left == (None, 0) and gaps["ok"]
+          and gan_rel <= 1e-5 and ea_rel <= 1e-5
+          and all(r["end_step"] == 2 and r["checkpoints"] == [
+              "do_00000002", "g_00000002"] for r in gan.values())
+          and gan["mesh"]["on_mesh"] and not gan["plain"]["on_mesh"]
+          and all(r["validation_k2_launches"] == 72 for r in gan.values())
+          and all(r["end_step"] == 2 and r["checkpoints"] == [
+              "ea_00000002", "last_00000000"] for r in ea.values())
+          and ea["mesh"]["on_mesh"] and not ea["plain"]["on_mesh"]
+          and same_grads and grad_rel <= EA_W1_GRAD_REL
+          and norm_rel <= EA_W1_GRAD_REL)
+    row = {"phase": "dist_world1",
+           "groups_of_the_mesh_steps": sorted(map(list, groups),
+                                              key=str),
+           "group_left_after": left[0],
+           "train_hifigan_modified_b16x44288_f32": {
+               **gan, "first_step_metric_rel": gan_rel,
+               "mesh_vs_plain": {k: gaps[k] for k in (
+                   "share_max", "excess_max", "small_excess_max", "failed",
+                   "ok")}},
+           "train_ea_large_b16x5s_bf16": {
+               **ea, "first_step_metric_rel": ea_rel,
+               "step1_grad_rel_to_largest": grad_rel,
+               "step1_grad_norm_before_clip": norms,
+               "step1_grad_norm_rel": norm_rel,
+               "grad_bound": EA_W1_GRAD_REL, "largest_grad": top,
+               "param_gap_after_2_steps": ea_gap, "gap_tensor": ea_where,
+               "k_proj_bias_gap": ea_noise},
+           "seconds": time.perf_counter() - t_phase, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError("dist_world1 check failed")
+    return {"validation_k2_launches": gan["mesh"]["validation_k2_launches"]}
+
+
+def _w2_ea(torch, mesh) -> dict:
+    """The I_ea step on this rank's 8 rows of a B = 16 global batch
+    (HuBERT-base + head, 5 s, f32, 2 steps) against the world-1 step on
+    all 16 rows from the same start: the losses summed over the ranks
+    (a mean would halve them), the gradients and parameters."""
+    from speech_inpainting_torch.convert.from_jax import trainable_hubert
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    from speech_inpainting_torch.parallel.distributed import local_batches
+    from speech_inpainting_torch.testing import hubert_tree
+    from speech_inpainting_torch.train import ea
+    rng = np.random.default_rng(SEED + 310)       # the same on every rank
+    hcfg = HubertConfig.base()
+    tree = _trained_like(hubert_tree(hcfg, 80, rng), rng)
+    centroids = rng.standard_normal((100, 80)).astype(np.float32)
+    batches = [_ea_batch(rng, EA_DIST_B, EA_SAMPLES, 100)
+               for _ in range(DIST_LR_STEPS)]
+    cfg = ea.EAConfig(mask_length=EA_MASK)
+    step = ea.make_train_step(cfg, centroids, "cuda")
+    runs = {}
+    for name, on_mesh in (("world1", False), ("world2", True)):
+        state = ea.create_state(cfg, trainable_hubert(hcfg, tree, 80,
+                                                      device="cuda"))
+        if on_mesh:
+            state.mesh = mesh
+        log, losses = [], []
+        timed = _event_timed(lambda: step, log)()
+        for b in (local_batches(iter(batches), mesh) if on_mesh
+                  else batches):
+            state, m = timed(state, b)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        runs[name] = (state, losses,
+                      [a.elapsed_time(b) for a, b, _ in log])
+    (s1, l1, ms1), (s2, l2, ms2) = runs["world1"], runs["world2"]
+    # the last step's clipped gradients, each gap over the model's largest
+    # gradient (a mean over the ranks would read 0.5 here)
+    grads1 = {n: p.grad for n, p in s1.model.named_parameters()}
+    top = max(float(g.abs().max()) for g in grads1.values())
+    grad_rel = max(float((p.grad - grads1[n]).abs().max()) / top
+                   for n, p in s2.model.named_parameters()
+                   if not n.endswith(NOISY))
+    gap, where, noise = _param_gap(s2.model, s1.model)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l2, l1))
+    bound = 2 * 1e-4 * DIST_LR_STEPS
+    ok = loss_rel <= 1e-4 and grad_rel <= 1e-4 and gap <= bound
+    return {"B_global": EA_DIST_B, "B_rank": EA_DIST_B // 2,
+            "loss_world1": l1, "loss_world2": l2, "loss_rel": loss_rel,
+            "last_grad_rel": grad_rel, "param_gap": gap, "gap_tensor": where,
+            "k_proj_bias_gap": noise, "bound": bound,
+            "ms_per_step_world1": ms1, "ms_per_step_world2": ms2, "ok": ok}
+
+
+def _w2_gan(torch, mesh) -> dict:
+    """The V1 GAN step (vanilla recipe, configs/hifigan_v1.json, the full
+    MPD and MSD, f32) on this rank's 8 rows of a 16 × 8192 batch against
+    the world-1 step on all 16 rows from the same start, every tensor by
+    testing.parity_gate (`_gan_gaps`, world 1 as reference); then the
+    validation sweep (gan_valid_fn: the folded generator on a replicated
+    B = 8 batch, K2) on both states."""
+    from speech_inpainting_torch.ops.resblock import fused_resblock_step
+    from speech_inpainting_torch.parallel.distributed import local_batches
+    from speech_inpainting_torch.train.hifigan import (make_vanilla_eval,
+                                                       make_vanilla_step)
+    from speech_inpainting_torch.train.run import gan_valid_fn
+    rng = np.random.default_rng(SEED + 320)
+    tcfg = _gan_cfg(CONFIGS / "hifigan_v1.json", ISTFT_SEG)
+    trees = _gan_trees(torch, tcfg.hifigan, rng)
+    batch = {"audio": _gan_audio(rng, 16, ISTFT_SEG)}
+    val = [{"audio": _gan_audio(rng, 8, ISTFT_SEG)}]
+    step = make_vanilla_step(tcfg)
+    valid_fn = gan_valid_fn(make_vanilla_eval(tcfg), val)
+    out, tensors = {}, {}
+    for name, on_mesh in (("world1", False), ("world2", True)):
+        state = _gan_state(torch, tcfg, trees, "cuda")
+        b = batch
+        if on_mesh:
+            state.mesh = mesh
+            b = next(local_batches(iter([batch]), mesh))
+        log = []
+        state, m = _event_timed(lambda: step, log)()(state, b)
+        fused_resblock_step.launches = 0
+        mel_error = valid_fn(state)["mel_error"]
+        torch.cuda.synchronize()
+        out[name] = {"metrics": {k: float(v) for k, v in m.items()},
+                     "ms_step": log[0][0].elapsed_time(log[0][1]),
+                     "validation_mel_error": mel_error,
+                     "validation_k2_launches": fused_resblock_step.launches}
+        tensors[name] = _gan_tensors(torch, state)
+        del state
+    gaps = _gan_gaps(tensors["world2"], tensors["world1"], tensors["world1"])
+    del tensors
+    m1, m2 = out["world1"]["metrics"], out["world2"]["metrics"]
+    metric_rel = max(abs(m2[k] - m1[k]) / max(abs(m1[k]), 1e-12)
+                     for k in m1)
+    ok = (gaps["ok"] and metric_rel <= 1e-4
+          and out["world2"]["validation_k2_launches"] == 72
+          and abs(out["world2"]["validation_mel_error"]
+                  - out["world1"]["validation_mel_error"]) <= 1e-3)
+    return {**out, "metric_rel": metric_rel,
+            "gate": {k: gaps[k] for k in ("share_max", "excess_max",
+                                          "small_excess_max", "failed",
+                                          "ok")}, "ok": ok}
+
+
+def _w2_inpaint(torch, mesh, rank: int) -> dict:
+    """InformedInpainter(mesh=) at the main path's full width (HuBERT-base
+    + head, 100 × 80 codebook, V1) on B = 8 × 4 s: this rank's 4 rows (72
+    K1 launches), gathered; against the world-1 inpainter's batch() on
+    all 8 rows, waveforms atol 1e-4 and labels equal. This rank's
+    inpainter starts from another codebook where rank != 0: the mesh's
+    replication must give it rank 0's."""
+    from speech_inpainting_torch.infer.inpaint import InformedInpainter
+    from speech_inpainting_torch.ops.resblock import fused_resblock1
+    from speech_inpainting_torch.testing import synthetic_batch
+    cfg, hp, gp, centroids = _ea_setup(np.random.default_rng(SEED))
+    w22, w16, pos, lens = synthetic_batch(np.random.default_rng(SEED + 330),
+                                          8, 4.0)
+    dev = [torch.as_tensor(a, device="cuda") for a in (w22, w16, pos, lens)]
+    one = InformedInpainter(cfg, hp, gp, centroids)
+    want = one.batch(*dev)
+    one_ms = cuda_ms(lambda: one.batch(*dev), 3)
+    del one
+    inp = InformedInpainter(cfg, hp, gp, centroids + 0.5 * rank, mesh=mesh)
+    fused_resblock1.launches = 0
+    got = inp.batch(*dev)
+    torch.cuda.synchronize()
+    launches = fused_resblock1.launches
+    gap = float((got["inpainted"] - want["inpainted"]).abs().max())
+    labels = bool((got["pred_labels"] == want["pred_labels"]).all())
+    mesh_ms = cuda_ms(lambda: inp.batch(*dev), 3)
+    ok = launches == 72 and gap <= MAIN_ATOL and labels
+    return {"B_global": 8, "B_rank": 4, "seconds_per_utterance": 4.0,
+            "k1_launches": launches, "waveform_gap_vs_world1": gap,
+            "labels_equal": labels, "ms_batch_world1": one_ms,
+            "ms_batch_mesh": mesh_ms, "ok": ok}
+
+
+def _w2_tp(torch) -> dict:
+    """Tensor parallelism on the card over gloo: HuBERT-base + head
+    (parallel/tp.py on a ("dp", 1) × ("tp", 2) mesh: each rank 6 of the 12
+    heads and half the MLP) on B = 2 × 4 s, against the unsharded module
+    on the same rank, head output atol 1e-3 (HUBERT_ATOL); ms per forward
+    of each."""
+    from speech_inpainting_torch.convert.from_jax import hubert_from_jax
+    from speech_inpainting_torch.device import full_f32
+    from speech_inpainting_torch.models.hubert import HubertConfig
+    from speech_inpainting_torch.parallel.mesh import make_mesh
+    from speech_inpainting_torch.parallel.tp import check_tp, shard_params
+    from speech_inpainting_torch.testing import hubert_tree, synthetic_batch
+    rng = np.random.default_rng(SEED + 340)
+    hcfg = HubertConfig.base()
+    model = hubert_from_jax(hcfg, hubert_tree(hcfg, 80, rng), 80,
+                            device="cuda")
+    wav = torch.as_tensor(synthetic_batch(rng, 2, 4.0)[1], device="cuda")
+    mesh = make_mesh((("dp", 1), ("tp", 2)), device_type="cuda")
+    check_tp(hcfg, mesh)
+    with torch.no_grad(), full_f32():
+        want = model(wav)
+        whole_ms = cuda_ms(lambda: model(wav), 3)
+        shard_params(mesh, model)
+        got = model(wav)
+        tp_ms = cuda_ms(lambda: model(wav), 3)
+    gap = float((got - want).abs().max())
+    q = model.hubert.layers[0].attention.q_proj.weight
+    sharded = tuple(q.to_local().shape) == (q.shape[0] // 2, q.shape[1])
+    return {"B": 2, "seconds": 4.0, "heads_per_rank": 6, "sharded": sharded,
+            "head_output_gap": gap, "tolerance": HUBERT_ATOL,
+            "ms_forward_unsharded": whole_ms, "ms_forward_tp2": tp_ms,
+            "ok": sharded and gap <= HUBERT_ATOL}
+
+
+def dist_worker(torch, rank: int, world: int, port: int, d: Path) -> int:
+    """One rank of the two that share the card (`--dist-worker`): a gloo
+    group over tcp://127.0.0.1:<port> (NCCL refuses two ranks on one
+    device), a ("dp",) mesh on "cuda", then the world-2 checks and the
+    tensor-parallel one; the results to d/rank<r>.json."""
+    import torch.distributed as dist
+    from speech_inpainting_torch.parallel.mesh import make_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    mesh = make_mesh(device_type="cuda")
+    out = {"rank": rank, "world": dist.get_world_size(),
+           "backend": dist.get_backend()}
+    for name, fn in (("ea_step", lambda: _w2_ea(torch, mesh)),
+                     ("gan_step", lambda: _w2_gan(torch, mesh)),
+                     ("inpainter", lambda: _w2_inpaint(torch, mesh, rank)),
+                     ("tp_forward", lambda: _w2_tp(torch))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    (d / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_dist_world2_one_card(torch) -> dict:
+    """Two worker processes (this script with --dist-worker), both on
+    cuda:0 in a gloo group: each runs `_w2_ea`, `_w2_gan`, `_w2_inpaint`
+    and `_w2_tp` and writes its results; a worker that fails fails the
+    phase. Prints one line per check and rank (`dist_world2_one_card`,
+    `tp_world2_one_card`), with its seconds."""
+    import tempfile
+    from speech_inpainting_torch.parallel.mesh import free_port
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        port = free_port()
+        logs = [open(d / f"rank{r}.log", "w") for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dist-worker",
+             str(r), "2", str(port), str(d)],
+            stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+        # a rank that fails leaves the other waiting in a collective: stop
+        # both at the first failure, or at the deadline
+        deadline = time.perf_counter() + 600
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() for p in procs) or \
+                        time.perf_counter() > deadline:
+                    break
+                time.sleep(1)
+        finally:
+            for p, log in zip(procs, logs):
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+                log.close()
+        bad = [(r, p.returncode) for r, p in enumerate(procs)
+               if p.returncode]
+        if bad:
+            for (r, rc) in bad:
+                tail = (d / f"rank{r}.log").read_text()[-6000:]
+                print(f"dist worker {r} exited {rc}:\n{tail}",
+                      file=sys.stderr, flush=True)
+            raise AssertionError(f"dist workers failed: {bad}")
+        res = [json.loads((d / f"rank{r}.json").read_text())
+               for r in range(2)]
+    seconds = time.perf_counter() - t0
+    tp = {"phase": "tp_world2_one_card", "backend": res[0]["backend"],
+          "ranks": [r["tp_forward"] for r in res],
+          "ok": all(r["tp_forward"]["ok"] for r in res)}
+    row = {"phase": "dist_world2_one_card", "backend": res[0]["backend"],
+           "world_size": res[0]["world"],
+           "gather": "all_reduce of a zeroed buffer (gloo gathers no CUDA "
+                     "tensor)",
+           "ranks": [{k: r[k] for k in ("rank", "ea_step", "gan_step",
+                                        "inpainter")} for r in res],
+           "seconds": seconds,
+           "ok": all(r[k]["ok"] for r in res
+                     for k in ("ea_step", "gan_step", "inpainter"))}
+    emit(row)
+    emit(tp)
+    if not (row["ok"] and tp["ok"]):
+        raise AssertionError("dist_world2_one_card check failed")
+    return {"k1_launches_per_rank": [r["inpainter"]["k1_launches"]
+                                     for r in res],
+            "k2_launches_per_rank": [
+                r["gan_step"]["world2"]["validation_k2_launches"]
+                for r in res]}
+
+
 def control_unpinned(torch) -> int:
     """The control of `default_flags` (`--unpinned`): the entry points'
     pinning (`device.full_f32`) is made a no-op before they are imported,
@@ -5280,6 +5816,9 @@ def main() -> int:
     torch.backends.cudnn.benchmark = False
     if sys.argv[1:] == ["--unpinned"]:
         return control_unpinned(torch)
+    if sys.argv[1:2] == ["--dist-worker"]:
+        rank, world, port, d = sys.argv[2:6]
+        return dist_worker(torch, int(rank), int(world), int(port), Path(d))
     info = phase_device(torch)
     spills = phase_build()
     errs = phase_kernel_check(torch)
@@ -5318,7 +5857,9 @@ def main() -> int:
     phase_kmeans_fit(torch)
     phase_ea_train_parity(torch)
     phase_ea_train(torch)
-    tcli = phase_train_ea_cli(torch)
+    # train_ea_cli's corpus and HuBERT-large directory, kept for dist_world1
+    ea_corpus = tempfile.TemporaryDirectory()
+    tcli = phase_train_ea_cli(torch, Path(ea_corpus.name))
     phase_gan_step_parity(torch)
     phase_gan_train(torch)
     gcli = phase_train_hifigan_cli(torch)
@@ -5333,6 +5874,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as prep_dir:
         f0cli = phase_prep_and_train_f0vq_cli(torch, ida, Path(prep_dir))
         dcli = phase_train_da_cli(torch, ida, Path(prep_dir))
+    w1 = phase_dist_world1(torch, Path(ea_corpus.name))
+    ea_corpus.cleanup()
+    w2 = phase_dist_world2_one_card(torch)
     taken = {"I_ea": _plan_tiles(4, path["T"], path["kernel_sizes"],
                                  path["dilations"]),
              "I_da": _plan_tiles(1, ida["T"], ida["kernel_sizes"],
@@ -5369,8 +5913,9 @@ def main() -> int:
         # g_ (training launches none), the evaluation sweep's three (wav,
         # mask length) batches, each a `batch` and a `batch_expected` of B =
         # 8, the iSTFT trainer's validation sweep (one B = 16 forward of the
-        # folded ISTFTGenerator) and one B = 4 batch of the inpainter with
-        # the generator it trained
+        # folded ISTFTGenerator), one B = 4 batch of the inpainter with
+        # the generator it trained, and each rank's 4 rows of a B = 8
+        # batch of the mesh inpainter (two ranks on the card, gloo)
         "launches_by_path": {
             "I_ea_hubert_base_v1": path["launches"],
             "I_ea_hubert_large_v1": large_launches,
@@ -5389,7 +5934,11 @@ def main() -> int:
             "train_hifigan_istft_validation_sweep":
                 ist["cli_runs"][0]["validation_k1_launches"],
             "istft_trained_inpainter_per_batch":
-                ist["inpainter_k1_launches"]},
+                ist["inpainter_k1_launches"],
+            "dist_world2_mesh_inpainter_rank0":
+                w2["k1_launches_per_rank"][0],
+            "dist_world2_mesh_inpainter_rank1":
+                w2["k1_launches_per_rank"][1]},
         # the worst over the checks: V1's 12 (C, K) shapes at B=2,
         # T=2049, the main path's 12 shapes at B=4, the edge shapes, and
         # the evaluation sweep's B = 8 and the iSTFT trainer's validation
@@ -5434,9 +5983,11 @@ def main() -> int:
         # HiFi-GAN trainer's validation sweep (one B = 4 forward of the
         # folded CodeGenerator), one I_da utterance through the
         # CodeGenerator it trained, the ASR→TTS baseline's donor
-        # rendering (predict_asr --donor: two vocoder calls), and one B = 4
+        # rendering (predict_asr --donor: two vocoder calls), one B = 4
         # batch of the exported artifact with a plain Generator override
-        # (through the operator si::resblock_step)
+        # (through the operator si::resblock_step), the validation sweep of
+        # `train_hifigan --mesh` at world size 1 (NCCL), and each rank's
+        # validation sweep of the world-2 GAN step (B = 8, replicated)
         "launches_by_path": {
             "I_da_utterance": ida["launches"],
             "inpaint_da_cli_per_utterance_per_mask":
@@ -5454,7 +6005,13 @@ def main() -> int:
             "I_da_utterance_with_trained_codegen": dcli["k2_launches"],
             "predict_asr_donor_rendering": asr["launches"],
             "aot_artifact_v1_plain_generator_per_batch":
-                aot["k2_launches"]},
+                aot["k2_launches"],
+            "dist_world1_train_hifigan_mesh_validation_sweep":
+                w1["validation_k2_launches"],
+            "dist_world2_gan_validation_sweep_rank0":
+                w2["k2_launches_per_rank"][0],
+            "dist_world2_gan_validation_sweep_rank1":
+                w2["k2_launches_per_rank"][1]},
         # the worst over the I_da generator's 45 step shapes, V1's 36 at
         # the vocode CLI's lengths and 36 at the GAN trainer's validation
         # sweep (B = 16), the I_da generator's 45 at the DA trainer's sweep

@@ -26,9 +26,16 @@ batches (epoch 0, seed + 1) through the folded generator, whose
 ResBlock1s run in K2 on the card. Runs on the CUDA card; `--device cpu`
 runs on the CPU.
 
-Refused: the data-parallel flags (`--mesh`, `--coordinator`,
-`--num-processes`, `--process-id`: ROADMAP Queue 1 item 11), and a config
-in the joint enc-VQ-dec regime (lambda_commit_code set): `CodeDataset`
+Data parallel, with the JAX CLI's flags: `--mesh` trains over the ranks of
+the process group this process joins (one rank per card; with no launcher
+and no --coordinator a group of one, NCCL on the card), and
+`--coordinator host:port --num-processes N --process-id i` (or torchrun's
+environment) joins a group of N, which implies `--mesh`; each rank takes
+its rows of every global batch of `--batch-size`, and rank 0 alone writes
+checkpoints and logs. The group that a run joins is left when
+it ends. On the CPU the ranks talk over gloo.
+
+Refused: a config in the joint enc-VQ-dec regime (lambda_commit_code set): `CodeDataset`
 yields integer units, an integer code dequantizes through the codebook
 with no commit term, and the JAX CLI's step then computes
 lambda_commit × None and raises as it traces its first step. The joint
@@ -48,6 +55,8 @@ from ..data.manifests import parse_manifest
 from ..device import resolve_device
 from ..models.codegen import CodeGeneratorConfig
 from ..ops.mel import MelConfig
+from ..parallel.distributed import (add_cli_args, data_parallel_mesh,
+                                    initialize_from_args, leaves_no_group)
 from ..train.da import DATrainConfig, da_gen_fwd, make_da_eval, make_da_step
 from ..train.gan import GANConfig, create_gan_state, default_discriminators
 from ..train.run import RunConfig, gan_valid_fn, run_gan_training
@@ -67,6 +76,7 @@ def input_width(cfg: CodeGeneratorConfig, batch: dict) -> int:
     return width
 
 
+@leaves_no_group
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -94,17 +104,15 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: the CUDA card)")
-    dist = p.add_argument_group("multi-host (not ported)")
-    dist.add_argument("--mesh", action="store_true")
-    dist.add_argument("--coordinator", default=None)
-    dist.add_argument("--num-processes", type=int, default=None)
-    dist.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--mesh", action="store_true",
+                   help="data-parallel over the ranks of the process group, "
+                        "one per card (without a launcher or "
+                        "--coordinator: a group of one)")
+    add_cli_args(p)
     args = p.parse_args(argv)
-    if args.mesh or args.coordinator or args.num_processes or \
-            args.process_id is not None:
-        p.error("--mesh and the multi-host flags are not ported: the "
-                "PyTorch trainer runs one process on one device (ROADMAP "
-                "Queue 1 item 11)")
+    # multi-host: join the process group before anything reaches the card
+    if initialize_from_args(args):
+        args.mesh = True
     device = resolve_device(args.device)
 
     h = json.loads(Path(args.config).read_text())
@@ -156,6 +164,7 @@ def main(argv=None):
                              *default_discriminators(cfg.gan, device))
     run = RunConfig(epochs=args.epochs, checkpoint_dir=args.checkpoint_path,
                     log_dir=args.log_dir, training_steps=args.training_steps,
+                    mesh=data_parallel_mesh(args.mesh, device),
                     abort_nonfinite=args.skip_nonfinite,
                     validation_interval=args.validation_interval)
     batch_size = h.get("batch_size", 16)

@@ -15,9 +15,16 @@ from flax's initialisers, drawn from `--seed`. Checkpoints go to
 optimizer, guard and step; a rerun resumes from the newest), `best_00000000`
 and `last_00000000` (`{"model": state_dict}`, which `predict_ea
 --hubert-checkpoint` reads). Runs on the CUDA card; `--device cpu` runs on
-the CPU. The data-parallel flags (`--mesh`, `--coordinator`,
-`--num-processes`, `--process-id`) are refused: one process on one device
-only, until ROADMAP Queue 1 item 11.
+the CPU.
+
+Data parallel, with the JAX CLI's flags: `--mesh` trains over the ranks of
+the process group this process joins (one rank per card; with no launcher
+and no --coordinator a group of one, NCCL on the card), and
+`--coordinator host:port --num-processes N --process-id i` (or torchrun's
+environment) joins a group of N, which implies `--mesh`; each rank takes
+its rows of every global batch of `--batch-size`, and rank 0 alone writes
+checkpoints and logs. The group that a run joins is left when
+it ends. On the CPU the ranks talk over gloo.
 """
 from __future__ import annotations
 
@@ -33,6 +40,8 @@ from ..data.ea_dataset import EADataset, plan_buckets
 from ..data.manifests import read_split_list
 from ..device import resolve_device
 from ..models.hubert import HubertConfig
+from ..parallel.distributed import (add_cli_args, data_parallel_mesh,
+                                    initialize_from_args, leaves_no_group)
 from ..quantize.kmeans import KMeans
 from ..train.ea import EAConfig, create_state, eval_step, make_train_step
 from ..train.run import RunConfig, run_ea_training
@@ -69,6 +78,7 @@ def build_model(hcfg: HubertConfig, out_dim: int, seed: int, pretrained,
     return model.to(device)
 
 
+@leaves_no_group
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -116,17 +126,15 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: the CUDA card)")
-    dist = p.add_argument_group("multi-host (not ported)")
-    dist.add_argument("--mesh", action="store_true")
-    dist.add_argument("--coordinator", default=None)
-    dist.add_argument("--num-processes", type=int, default=None)
-    dist.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--mesh", action="store_true",
+                   help="data-parallel over the ranks of the process group, "
+                        "one per card (without a launcher or "
+                        "--coordinator: a group of one)")
+    add_cli_args(p)
     args = p.parse_args(argv)
-    if args.mesh or args.coordinator or args.num_processes or \
-            args.process_id is not None:
-        p.error("--mesh and the multi-host flags are not ported: the "
-                "PyTorch trainer runs one process on one device (ROADMAP "
-                "Queue 1 item 11)")
+    # multi-host: join the process group before anything reaches the card
+    if initialize_from_args(args):
+        args.mesh = True
     if args.batch_size % args.grad_accum:
         p.error("--batch-size must be divisible by --grad-accum")
     device = resolve_device(args.device)
@@ -154,7 +162,8 @@ def main(argv=None):
                               max_length, args.mask_length, args.cache_dir)
                 if args.valid_split else None)
     run = RunConfig(epochs=args.epochs, checkpoint_dir=args.checkpoint_path,
-                    log_dir=args.log_dir,
+                    log_dir=args.log_dir, mesh=data_parallel_mesh(args.mesh,
+                                                                  device),
                     abort_nonfinite=args.skip_nonfinite)
     buckets = (plan_buckets(np.asarray(train_ds.lengths), args.buckets,
                             max_length=max_length) if args.buckets else None)

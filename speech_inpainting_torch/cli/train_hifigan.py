@@ -24,9 +24,16 @@ dilations, then the n_fft 16 / hop 4 iSTFT head) from `--seed`; its g_
 holds that module's state dict, and its validation sweep folds it into
 the inference `ISTFTGenerator` (trunk in K1 on the card). It takes neither
 `--modified` nor `--warm-start`, as in the JAX CLI. Runs on the CUDA card;
-`--device cpu` runs on the CPU. Not ported: the data-parallel flags
-(`--mesh`, `--coordinator`, `--num-processes`, `--process-id`: ROADMAP
-Queue 1 item 11), which are refused.
+`--device cpu` runs on the CPU.
+
+Data parallel, with the JAX CLI's flags: `--mesh` trains over the ranks of
+the process group this process joins (one rank per card; with no launcher
+and no --coordinator a group of one, NCCL on the card), and
+`--coordinator host:port --num-processes N --process-id i` (or torchrun's
+environment) joins a group of N, which implies `--mesh`; each rank takes
+its rows of every global batch of `--batch-size`, and rank 0 alone writes
+checkpoints and logs. The group that a run joins is left when
+it ends. On the CPU the ranks talk over gloo.
 """
 from __future__ import annotations
 
@@ -45,6 +52,8 @@ from ..device import resolve_device
 from ..models.hifigan import HiFiGANConfig
 from ..models.hifigan_istft import ISTFTGeneratorConfig
 from ..ops.mel import MODIFIED_MEL_22K
+from ..parallel.distributed import (add_cli_args, data_parallel_mesh,
+                                    initialize_from_args, leaves_no_group)
 from ..quantize.kmeans import KMeans
 from ..train.gan import GANConfig, create_gan_state, default_discriminators
 from ..train.hifigan import (HiFiGANTrainConfig, make_modified_eval,
@@ -121,6 +130,7 @@ class CropDataset:
             yield batch
 
 
+@leaves_no_group
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -163,17 +173,15 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: the CUDA card)")
-    dist = p.add_argument_group("multi-host (not ported)")
-    dist.add_argument("--mesh", action="store_true")
-    dist.add_argument("--coordinator", default=None)
-    dist.add_argument("--num-processes", type=int, default=None)
-    dist.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--mesh", action="store_true",
+                   help="data-parallel over the ranks of the process group, "
+                        "one per card (without a launcher or "
+                        "--coordinator: a group of one)")
+    add_cli_args(p)
     args = p.parse_args(argv)
-    if args.mesh or args.coordinator or args.num_processes or \
-            args.process_id is not None:
-        p.error("--mesh and the multi-host flags are not ported: the "
-                "PyTorch trainer runs one process on one device (ROADMAP "
-                "Queue 1 item 11)")
+    # multi-host: join the process group before anything reaches the card
+    if initialize_from_args(args):
+        args.mesh = True
     if args.istft and args.modified:
         p.error("--istft is a vanilla-recipe family")
     if args.istft and args.warm_start:
@@ -251,6 +259,7 @@ def main(argv=None):
 
     run = RunConfig(epochs=args.epochs, checkpoint_dir=args.checkpoint_path,
                     log_dir=args.log_dir,
+                    mesh=data_parallel_mesh(args.mesh, device),
                     abort_nonfinite=args.skip_nonfinite,
                     validation_interval=args.validation_interval)
     valid_fn = None

@@ -6,9 +6,12 @@ on one device. On a CUDA device each batch goes through pinned memory,
 copied with `non_blocking=True` on a stream of its own, so the copy
 neither waits for the step running on the compute stream nor holds up the
 host; the consumer's stream waits on the copy's event before it uses the
-batch. A loader error reaches the consumer, as in the JAX package. The mesh
-form (batches sharded over several cards) is not ported (ROADMAP Queue 1
-item 11: `train/run.py` refuses a mesh).
+batch. A loader error reaches the consumer, as in the JAX package. Under a
+mesh (parallel/mesh.py) the batches are this rank's rows of each global
+batch, cut by `parallel.distributed.local_batches` before they get here
+(JAX assembles the processes' rows into one global array here), and
+`device` is this rank's; so the JAX function's `mesh` and `axis` have no
+counterpart.
 """
 from __future__ import annotations
 

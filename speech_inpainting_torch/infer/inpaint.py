@@ -137,12 +137,28 @@ class InformedInpainter:
     Every entry point returns as soon as its work is enqueued on the card
     (host arrays are staged through pinned memory); read the results, or
     wait on them (`infer.serving.force`), to synchronise.
+
+    `mesh` (parallel/mesh.py): data-parallel batch serving over the ranks
+    of a DeviceMesh, one per card (the reference's Pool(8) inference
+    workers, I_da/scripts/inference.py:311-327). The weights and codebook
+    are rank 0's on every rank, made so once here; each batch entry point
+    computes this rank's rows of a batch whose size divides the mesh's dp
+    axis and gathers the global result on every rank, as JAX's returns a
+    global array. A batch that does not divide dp (the one-utterance
+    `__call__`, B = 1), or a mesh without a dp axis, is computed whole on
+    every rank: correct, just not distributed. `device` must be the
+    mesh's.
     """
 
     def __init__(self, cfg: InpainterConfig, hubert_params, generator_params,
-                 centroids, *, generator=None, hubert=None, device=None):
+                 centroids, *, generator=None, hubert=None, device=None,
+                 mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
+        if mesh is not None:
+            from ..parallel.mesh import on_mesh
+            self.device = on_mesh(self.device, mesh)
         C = torch.as_tensor(centroids, dtype=torch.float32,
                             device=self.device)
         for name, tree, module in (("hubert", hubert_params, hubert),
@@ -159,6 +175,26 @@ class InformedInpainter:
             else generator_from_jax(cfg.hifigan, generator_params,
                                     device=self.device),
             C, cfg.normalize_16k)
+        if mesh is not None:
+            from ..parallel.mesh import replicate
+            replicate(mesh, self.graph)
+
+    def _sharded(self, fn, *inputs) -> dict:
+        """fn(*inputs) over the batch: on a mesh whose dp axis divides the
+        batch, this rank's rows, then every rank's outputs gathered in rank
+        order (parallel/distributed.py:all_gather_rows); else whole."""
+        mesh = self.mesh
+        if mesh is None or "dp" not in mesh.mesh_dim_names:
+            return fn(*inputs)
+        dp = mesh.size(mesh.mesh_dim_names.index("dp"))
+        if inputs[0].shape[0] % dp:
+            return fn(*inputs)
+        from ..parallel.distributed import all_gather_rows
+        from ..parallel.mesh import data_index, rows
+        index, count = data_index(mesh, "dp")
+        out = fn(*(rows(x, index, count) for x in inputs))
+        group = mesh.get_group("dp")
+        return {k: all_gather_rows(v, group) for k, v in out.items()}
 
     @property
     def hubert(self) -> nn.Module:
@@ -183,7 +219,7 @@ class InformedInpainter:
         float32 whatever the caller's TF32 flags (`device.full_f32`)."""
         wav22, mask_pos, mask_len = self._inputs(wav22, mask_pos, mask_len)
         wav16 = stage(wav16, torch.float32, self.device)
-        return self.graph(wav22, wav16, mask_pos, mask_len)
+        return self._sharded(self.graph, wav22, wav16, mask_pos, mask_len)
 
     @torch.inference_mode()
     @full_f32()
@@ -195,20 +231,28 @@ class InformedInpainter:
         mel_expected (B, 80, F)."""
         wav22, mask_pos, mask_len = self._inputs(wav22, mask_pos, mask_len)
         labels = stage(target_labels, torch.int64, self.device)
-        mel = _masked_mel22(wav22, mask_pos, mask_len)
         g = self.graph
-        exp_mel = _splice(mel, g.C_centered[labels] + g.center, mask_pos,
-                          mask_len)
-        wav = self.generator(extend_mel(exp_mel))
-        return dict(expected_inpaint=wav[:, 0], mel_expected=exp_mel)
+
+        def expected(wav22, labels, mask_pos, mask_len):
+            mel = _masked_mel22(wav22, mask_pos, mask_len)
+            exp_mel = _splice(mel, g.C_centered[labels] + g.center,
+                              mask_pos, mask_len)
+            wav = self.generator(extend_mel(exp_mel))
+            return dict(expected_inpaint=wav[:, 0], mel_expected=exp_mel)
+
+        return self._sharded(expected, wav22, labels, mask_pos, mask_len)
 
     @torch.inference_mode()
     @full_f32()
     def _hifi_masked(self, wav22, mask_pos, mask_len) -> torch.Tensor:
         """The masked mel vocoded as it is, (B, T)."""
         wav22, mask_pos, mask_len = self._inputs(wav22, mask_pos, mask_len)
-        mel = _masked_mel22(wav22, mask_pos, mask_len)
-        return self.generator(extend_mel(mel))[:, 0]
+
+        def vocoded(wav22, mask_pos, mask_len):
+            mel = _masked_mel22(wav22, mask_pos, mask_len)
+            return {"wav": self.generator(extend_mel(mel))[:, 0]}
+
+        return self._sharded(vocoded, wav22, mask_pos, mask_len)["wav"]
 
     def __call__(self, wav22, wav16, mask_pos: int, mask_len: int) -> dict:
         """One utterance: wav22 (T22,), wav16 (T16,); mask in 20 ms frames."""

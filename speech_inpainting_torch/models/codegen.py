@@ -67,13 +67,15 @@ class FoVQVAE(nn.Module):
         self.decoder = Decoder(cfg.decoder)
 
     def forward(self, f0: torch.Tensor, *, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, group=None):
         """f0 (B, 1, T) → (reconstruction (B, 1, T), per-level commit
         terms, per-level metrics). With `train` the codebooks update and
         restart from candidates drawn from `generator` (quantize/vq.py),
-        and the latents pass straight through to the decoder."""
+        and the latents pass straight through to the decoder. `group` is
+        the JAX model's axis_name: the codebooks' sums run over its ranks'
+        rows and their candidates come from its first rank."""
         _, h_q, commits, metrics = self.vq(self.encoder(f0), train=train,
-                                           generator=generator)
+                                           generator=generator, group=group)
         return self.decoder(h_q), commits, metrics
 
     def encode_units(self, f0: torch.Tensor) -> torch.Tensor:
@@ -172,30 +174,35 @@ class CodeGenerator(nn.Module):
         return self.code_vq.encode(self.code_encoder(x))[0]
 
     def _content_vq(self, code: torch.Tensor, train: bool,
-                    generator: Optional[torch.Generator]):
+                    generator: Optional[torch.Generator], group):
         """Integer units dequantize through the codebook (no commit term,
         whatever `train`); continuous input runs the encoder and the VQ
         (model.py:134-141), with `train` its training forward."""
         if not code.is_floating_point():
             return self.code_vq.level_0.decode(code), None, {}
         _, h_q, commits, metrics = self.code_vq(
-            self.code_encoder(code), train=train, generator=generator)
+            self.code_encoder(code), train=train, generator=generator,
+            group=group, global_rows=True)
         return h_q[0], commits[0], metrics[0]
 
     def forward(self, code, f0=None, emb=None, spkr=None, *,
                 train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, group=None):
         """code (B, F) int, or in the content-VQ regime (B, F) int or
         (B, C, T) float; f0 (B, 1, Ff) float; emb (B, E) float d-vector or
         spkr (B,)/(B, 1) int ids. With `train`, a float `code` takes the
         content VQ's training forward: its codebook updates and restarts
-        from candidates drawn from `generator` (quantize/vq.py). The pitch
-        units take no gradient (the JAX model's stop_gradient)."""
+        from candidates drawn from `generator` (quantize/vq.py); with a
+        `group` it updates from the rows of all its ranks and draws its
+        candidates from them, as the JAX package's mesh-jitted step does
+        over the global batch. The pitch units take no gradient (the JAX
+        model's stop_gradient)."""
         cfg = self.cfg
         if cfg.content_vq:
             # returns early, any d-vector concatenated (model.py:173-185;
             # these configs run without the f0 and speaker-table paths)
-            feats, commit, metrics = self._content_vq(code, train, generator)
+            feats, commit, metrics = self._content_vq(code, train, generator,
+                                                      group)
             if emb is not None:
                 feats = torch.cat(
                     [feats, repeat_upsample(emb, feats.shape[-1])], dim=1)

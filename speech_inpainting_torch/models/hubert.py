@@ -219,17 +219,21 @@ class SelfAttention(nn.Module):
         super().__init__()
         h = cfg.hidden_size
         self.num_heads = cfg.num_attention_heads
+        self.head_dim = h // cfg.num_attention_heads
         self.q_proj, self.k_proj, self.v_proj, self.out_proj = (
             _dense(cfg, h, h) for _ in range(4))
 
     def forward(self, x, key_mask=None):
-        """`key_mask` (B, 1, 1, T) bool, True on the keys to attend."""
-        B, T, H = x.shape
-        heads = lambda t: t.reshape(B, T, self.num_heads, -1).transpose(1, 2)
+        """`key_mask` (B, 1, 1, T) bool, True on the keys to attend. The
+        heads are counted from the projections' width: under tensor
+        parallelism (parallel/tp.py) a rank's q/k/v hold num_heads / tp
+        whole heads, and out_proj takes that rank's share of the width."""
+        B, T, _ = x.shape
+        heads = lambda t: t.reshape(B, T, -1, self.head_dim).transpose(1, 2)
         q, k, v = heads(self.q_proj(x)), heads(self.k_proj(x)), heads(
             self.v_proj(x))
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)
-        return self.out_proj(out.transpose(1, 2).reshape(B, T, H))
+        return self.out_proj(out.transpose(1, 2).reshape(B, T, -1))
 
 
 class FeedForward(nn.Module):

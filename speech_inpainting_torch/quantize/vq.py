@@ -1,8 +1,18 @@
 """The EMA vector-quantization bottleneck: nearest-code encoding, decoding,
 the eval forward and the training forward.
 
-Counterpart of speech_inpainting_tpu/quantize/vq.py on one device (its
-`_psum` and `_bcast_from_zero` are identities there). The codebook `k`
+Counterpart of speech_inpainting_tpu/quantize/vq.py. Its `axis_name` is
+the training forward's `group`, a process group or None (one device):
+  - the one-hot sums k_sum and k_elem of each rank's rows are
+    all_reduced (JAX's `_psum`), so every rank's codebook takes the update
+    of the rows of all;
+  - the candidates come from the group's first rank by broadcast (JAX's
+    `_bcast_from_zero`), drawn from that rank's own rows, as each shard of
+    JAX's shard_map form takes shard 0's; with `global_rows` they are
+    drawn instead from every rank's rows, gathered in rank order (each
+    rank's generator in the same state), as JAX's mesh-jitted step over
+    the global batch draws them (train/da.py's joint regime).
+The codebook `k`
 (k_bins, emb_width), the EMA sums `k_sum` and `k_elem` and the `initted`
 flag are buffers, so an optimizer never sees them; they are filled from
 the JAX package's `vq` collection (convert/from_jax.py), a reference
@@ -32,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import full_f32
+from ..parallel.distributed import all_gather_rows, all_reduce_, broadcast_
 from .kmeans import pairwise_sqdist
 
 
@@ -110,12 +121,15 @@ class EMAVectorQuantizer(nn.Module):
 
     @torch.no_grad()
     def _update_k(self, flat: torch.Tensor, labels: torch.Tensor,
-                  cand: torch.Tensor) -> dict:
-        """The EMA update and the dead-code restart; their metrics."""
+                  cand: torch.Tensor, group=None) -> dict:
+        """The EMA update and the dead-code restart; their metrics. With a
+        `group`, the sums over the rows of all its ranks."""
         with full_f32():
             one_hot = F.one_hot(labels, self.k_bins).to(flat.dtype)
             _k_sum = one_hot.t() @ flat
             _k_elem = one_hot.sum(dim=0)
+        if group is not None:
+            all_reduce_([_k_sum, _k_elem], group)
         old_k = self.k.clone()
         self.k_sum.copy_(self.mu * self.k_sum + (1 - self.mu) * _k_sum)
         self.k_elem.copy_(self.mu * self.k_elem + (1 - self.mu) * _k_elem)
@@ -130,16 +144,27 @@ class EMAVectorQuantizer(nn.Module):
                 "dk": torch.linalg.vector_norm(self.k - old_k)
                 / old_k.numel() ** 0.5}
 
+    def _candidates(self, generator, flat, group, global_rows):
+        if group is not None and global_rows:
+            return _tile_candidates(generator, all_gather_rows(flat, group),
+                                    self.k_bins)
+        cand = _tile_candidates(generator, flat, self.k_bins)
+        if group is not None:
+            broadcast_([cand], group)
+        return cand
+
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 update_k: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                group=None, global_rows: bool = False):
         """x (N, C, T) → (labels (N, T), quantized (N, emb_width, T),
         commit ‖sg(x_d) − x‖² / x.numel() over the preprocessed x, metrics
         {fit: mean nearest distance, pn: prenorm; in training with
         update_k also entropy, used_curr, usage, dk}). In eval the output
         is the codebook rows themselves; in training the straight-through
         flat + sg(x_d − flat), and with update_k the buffers are updated
-        (candidates drawn from `generator`)."""
+        (candidates drawn from `generator`), over the rows of every rank
+        of `group` where one is given (module docstring)."""
         n, _, t = x.shape
         flat, prenorm = self._preprocess(x)
         if not train:
@@ -150,14 +175,16 @@ class EMAVectorQuantizer(nn.Module):
             return labels.reshape(n, t), x_out, commit, {"fit": fit,
                                                          "pn": prenorm}
         if update_k:
-            cand = _tile_candidates(generator, flat.detach(), self.k_bins)
+            cand = self._candidates(generator, flat.detach(), group,
+                                    global_rows)
             self._init_k(cand)
         with torch.no_grad():
             labels, fit = self.quantise(flat.detach())
             x_d = self.dequantise(labels)
         metrics = {"fit": fit, "pn": prenorm}
         if update_k:
-            metrics.update(self._update_k(flat.detach(), labels, cand))
+            metrics.update(self._update_k(flat.detach(), labels, cand,
+                                          group))
         commit = ((x_d - flat) ** 2).sum() / flat.numel()
         x_st = flat + (x_d - flat).detach()
         x_out = x_st.reshape(n, t, -1).transpose(1, 2)
@@ -181,10 +208,13 @@ class Bottleneck(nn.Module):
         return [b.decode(z) for b, z in zip(self.children(), zs)]
 
     def forward(self, xs: Sequence[torch.Tensor], *, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                group=None, global_rows: bool = False):
         """Per-level (labels, quantized, commit, metrics), as four lists;
-        training updates every level's codebook (update_k=train)."""
-        out = [b(x, train=train, update_k=train, generator=generator)
+        training updates every level's codebook (update_k=train), over
+        `group`'s ranks where one is given."""
+        out = [b(x, train=train, update_k=train, generator=generator,
+                 group=group, global_rows=global_rows)
                for b, x in zip(self.children(), xs)]
         zs, xqs, commits, metrics = map(list, zip(*out))
         return zs, xqs, commits, metrics

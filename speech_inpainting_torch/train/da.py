@@ -21,7 +21,9 @@ parameters and, as buffers, its codebooks, updated in place:
   - JAX gen_fwd(g_params, batch), the decoder-only regime with the pitch
     tree closed over → gen_fwd(module, batch);
   - JAX gen_fwd(g_params, vq, rng, batch) → (ŷ, commit, new_vq), the joint
-    regime → gen_fwd(module, batch, rng) → (ŷ, commit);
+    regime → gen_fwd(module, batch, rng, group) → (ŷ, commit), `group` the
+    mesh's data group (None on one device), over whose rows the content
+    codebook updates;
   - JAX da_gen_fwd's gen_fwd((g_params, vq), batch) → gen_fwd(module,
     batch), on the folded module in the loops' sweeps.
 So `make_da_step` takes no codebook: the JAX package's `vq_tree` (the
@@ -84,9 +86,10 @@ def make_da_step(cfg: DATrainConfig, vq_tree=None) -> Callable:
             "load_f0_quantizer), not into the step")
     mel_fn = _mel_fn(cfg)
     if cfg.codegen.content_vq:
-        def joint_fwd(module: nn.Module, batch, rng: torch.Generator):
+        def joint_fwd(module: nn.Module, batch, rng: torch.Generator,
+                      group=None):
             wav, commit, _ = module(batch["code"], **_conditioning(batch),
-                                    train=True, generator=rng)
+                                    train=True, generator=rng, group=group)
             return wav, commit
 
         return make_gan_step(joint_fwd, mel_fn, cfg.gan, stateful_vq=True)

@@ -22,7 +22,17 @@ mel codewords of masked frames:
     not at all, not even by weight decay), betas (0.9, 0.98), eps 1e-6,
     weight decay 1e-2 on every parameter;
   - with skip_nonfinite the update is skipped whole on a nan/inf gradient
-    (`train/guard.py`), while the state's step still advances.
+    (`train/guard.py`), while the state's step still advances;
+  - on a mesh (`state.mesh`, set by train/run.py or the caller), each rank
+    holds its rows of the global batch, and the step sums the gradients
+    over the mesh's data axes after the last microbatch's backward, before
+    the clip and the guard: the losses are sums over the masked frames, so
+    the global batch's gradient is the sum over ranks (not DDP's mean);
+    the loss is summed and the accuracies averaged over ranks, as the JAX
+    step computes them over the global batch. A nan on one rank reaches
+    every rank's reduced gradients, so all skip together. A tensor-parallel
+    model (parallel/tp.py) reduces over dp only: its DTensor weights
+    complete their own sums over tp.
 The step runs under `device.full_f32()`: float32 parts never run in TF32,
 and float32 attention runs in the math backend.
 """
@@ -39,7 +49,9 @@ from ..device import full_f32
 from ..losses import CentroidLosses
 from ..models.hubert import EncoderWithHead
 from ..ops.masking import mask_wave_frames
-from .guard import SkipNonFinite
+from ..parallel.distributed import (all_reduce_grads, data_group,
+                                    local_shard, reduce_metrics)
+from .guard import SkipNonFinite, total_norm
 from .optim import AdamW
 
 
@@ -65,11 +77,13 @@ class EAConfig:
 @dataclasses.dataclass
 class EATrainState:
     """What a step changes: its count, the model's parameters, the
-    optimizer's moments and counts, and the guard's skip counters."""
+    optimizer's moments and counts, and the guard's skip counters; and the
+    mesh the step runs on (None: one device), which no checkpoint holds."""
     step: int
     model: EncoderWithHead
     optimizer: "AdamW"
     guard: Optional[SkipNonFinite] = None
+    mesh: Optional[object] = None
 
     def state_dict(self) -> dict:
         sd = {"step": self.step, "model": self.model.state_dict(),
@@ -113,11 +127,13 @@ def create_state(cfg: EAConfig, model: EncoderWithHead) -> EATrainState:
 def clip_by_global_norm_(grads, max_norm: float) -> None:
     """optax.clip_by_global_norm in place: every gradient scaled by
     max_norm/‖g‖ when the global norm ‖g‖ is not below max_norm, with no
-    epsilon (torch's clip_grad_norm_ divides by ‖g‖ + 1e-6)."""
-    norm = torch.nn.utils.get_total_norm(grads)
+    epsilon (torch's clip_grad_norm_ divides by ‖g‖ + 1e-6). A DTensor
+    gradient (parallel/tp.py) counts whole in the norm and is scaled in
+    the shard this rank holds."""
+    norm = total_norm(grads)
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
-    torch._foreach_mul_(grads, scale)
+    torch._foreach_mul_([local_shard(g) for g in grads], scale)
 
 
 def gather_masked(outputs: torch.Tensor, mask_pos: torch.Tensor,
@@ -192,6 +208,9 @@ def make_train_step(cfg: EAConfig, centroids, device) -> Callable:
                 loss, acc, cos_acc = losses(model, mb)
                 loss.backward()
                 parts.append((loss.detach(), acc, cos_acc))
+            if state.mesh is not None:
+                all_reduce_grads(model.parameters(), data_group(state.mesh),
+                                 average=False)
             grads = [p.grad for p in model.parameters()]
 
             def update():
@@ -207,6 +226,9 @@ def make_train_step(cfg: EAConfig, centroids, device) -> Callable:
         # the logger's lines follow
         metrics = {"acc": acc.mean(), "cos_sim_acc": cos_acc.mean(),
                    "loss": loss.sum()}
+        if state.mesh is not None:
+            metrics = reduce_metrics(metrics, data_group(state.mesh),
+                                     sums=("loss",))
         if state.guard is not None:
             metrics["nonfinite_skips"] = state.guard.notfinite_count
         state.step += 1

@@ -1,7 +1,7 @@
 """The f0-VQ-VAE (pitch quantizer) trainer: MSE reconstruction plus
 λ·commitment, one step per batch.
 
-Counterpart of speech_inpainting_tpu/train/f0vq.py on one device:
+Counterpart of speech_inpainting_tpu/train/f0vq.py:
   - the FoVQVAE's training forward (jukebox encoder → EMA-VQ → jukebox
     decoder), whose codebook update and dead-code restarts run inside it
     from candidates drawn from the step's CPU `torch.Generator`;
@@ -12,16 +12,23 @@ Counterpart of speech_inpainting_tpu/train/f0vq.py on one device:
   - the metrics dict of the JAX step: loss, recon, commit and level 0's
     entropy, usage, used_curr and fit, as 0-dim tensors on the device.
 There is no guard and no clip, as there is none in the JAX step. The step
-runs in full float32 (`device.full_f32`).
+runs in full float32 (`device.full_f32`). On a mesh (`state.mesh`) each
+rank holds its rows: the mesh's data group is the model's `group` (JAX's
+`axis_name`: the codebook's sums run over every rank's rows, its
+candidates come from the first rank's), and the gradients and metrics are
+averaged over the ranks (the losses are means over equal row counts).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from ..device import full_f32, resolve_device
 from ..models.codegen import FoVQVAE, FoVQVAEConfig
+from ..parallel.distributed import (all_reduce_grads, data_group,
+                                    reduce_metrics)
 from .optim import AdamW, exponential_decay
 
 
@@ -40,10 +47,12 @@ class F0VQConfig:
 @dataclasses.dataclass
 class F0VQTrainState:
     """The JAX package's F0VQTrainState: the step count, the model (its
-    parameters and, as buffers, the `vq` collection) and the optimizer."""
+    parameters and, as buffers, the `vq` collection) and the optimizer;
+    and the mesh the step runs on (None: one device)."""
     step: int
     model: FoVQVAE
     optimizer: AdamW
+    mesh: Optional[object] = None
 
     def state_dict(self) -> dict:
         """{"params", "vq", "opt", "steps"}: the tree the CLI's g_ holds."""
@@ -84,20 +93,25 @@ def make_f0vq_step(cfg: F0VQConfig, device=None):
     def step(state: F0VQTrainState, batch, generator: torch.Generator):
         model = state.model
         f0 = torch.as_tensor(batch["f0"]).to(device, non_blocking=True)
+        group = None if state.mesh is None else data_group(state.mesh)
         with full_f32():
             out, commits, metrics = model(f0, train=True,
-                                          generator=generator)
+                                          generator=generator, group=group)
             recon = torch.mean((out - f0) ** 2)
             commit = sum(commits)
             loss = recon + cfg.lambda_commit * commit
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            if group is not None:
+                all_reduce_grads(model.parameters(), group, average=True)
             state.optimizer.step()
         m = {"loss": loss.detach(), "recon": recon.detach(),
              "commit": commit.detach()}
         for k in ("entropy", "usage", "used_curr", "fit"):
             if metrics and k in metrics[0]:
                 m[k] = metrics[0][k]
+        if group is not None:
+            m = reduce_metrics(m, group)
         state.step += 1
         return state, m
 

@@ -36,6 +36,20 @@ aliases, so the D step between that forward and the G backward leaves the
 backward intact. With `skip_nonfinite` the codebooks are gated on their
 own finiteness (`guard.tree_if_finite`), as JAX gates `state.vq`.
 
+On a mesh (`state.mesh`, set by train/run.py or the caller) each rank
+holds its rows of the global batch; the D gradients are averaged over the
+mesh's data axes after the D backward and the G gradients after the G
+backward, each before its update and guard (one coalesced all_reduce
+each): every GAN loss is a mean over equal row counts, so the global
+batch's gradient is the mean over ranks. A nan on one rank reaches every
+rank, so all skip together, as the guard over JAX's global arrays does.
+The metrics are averaged. With stateful_vq the codebook's sums run over
+every rank's rows and its candidates are drawn from the gathered rows (the
+same draw on every rank), as JAX's mesh-jitted step does over the global
+batch. The step is written out rather than wrapped in DDP: one generator
+forward feeds the D step and then, against the updated discriminators,
+the G step, which DDP's one-backward-per-forward hooks do not model.
+
 The generator is any trainable module: `WNGenerator`, the iSTFT head's
 `WNISTFTGenerator` (JAX's `generator=` override), or the unit trainer's
 `WNCodeGenerator`. `folded_mpd`, the JAX package's layout knob for the
@@ -55,6 +69,8 @@ from ..device import full_f32
 from ..models.hifigan import (Generator, MultiPeriodDiscriminator,
                               MultiScaleDiscriminator)
 from ..models.hifigan_istft import ISTFTGenerator
+from ..parallel.distributed import (all_reduce_grads, data_group,
+                                    reduce_metrics)
 from .guard import SkipNonFinite, tree_if_finite
 from .optim import AdamW, exponential_decay
 
@@ -86,7 +102,8 @@ class GANTrainState:
     """What a step changes: its count, the three modules (the MSD's u/v and
     any EMA codebooks of the generator in their buffers), both optimizers,
     with skip_nonfinite both guards, and with stateful_vq the restart
-    candidates' CPU generator `rng` (JAX's `state.rng`)."""
+    candidates' CPU generator `rng` (JAX's `state.rng`); and the mesh the
+    step runs on (None: one device), which no checkpoint holds."""
     step: int
     generator: nn.Module
     mpd: MultiPeriodDiscriminator
@@ -96,6 +113,7 @@ class GANTrainState:
     g_guard: Optional[SkipNonFinite] = None
     d_guard: Optional[SkipNonFinite] = None
     rng: Optional[torch.Generator] = None
+    mesh: Optional[object] = None
 
     def d_parameters(self) -> list:
         return [*self.mpd.parameters(), *self.msd.parameters()]
@@ -243,8 +261,9 @@ def make_gan_step(generator_fwd: Callable, mel_fn: Callable, cfg: GANConfig,
 
     generator_fwd(generator, batch) → ŷ (B, 1, T), or (ŷ, commit) where
     lambda_commit > 0; with stateful_vq generator_fwd(generator, batch,
-    rng) → (ŷ, commit), the generator's codebooks updated inside it from
-    candidates drawn from `rng` (the state's; JAX's generator_fwd(g_params,
+    rng, group) → (ŷ, commit), the generator's codebooks updated inside it
+    from candidates drawn from `rng` (the state's), over the rows of
+    `group`'s ranks (None on one device; JAX's generator_fwd(g_params,
     vq, rng, batch) → (ŷ, commit, new_vq), whose new_vq is the module's
     buffers here). mel_fn(wav (B, T)) → the loss mel. batch holds
     'audio' (B, 1, T), the ground truth, and 'mel_loss' (B, n_mels, F)
@@ -264,6 +283,8 @@ def make_gan_step(generator_fwd: Callable, mel_fn: Callable, cfg: GANConfig,
         y = batch["audio"]
         d_params = state.d_parameters()
         vq_before = None
+        group = (None if state.mesh is None
+                 else data_group(state.mesh))
         if stateful_vq:
             if state.rng is None:
                 raise ValueError("stateful_vq draws restart candidates from "
@@ -279,7 +300,7 @@ def make_gan_step(generator_fwd: Callable, mel_fn: Callable, cfg: GANConfig,
             # ---- 1. one generator forward, its graph kept -------------
             if stateful_vq:
                 y_hat, commit = generator_fwd(state.generator, batch,
-                                              state.rng)
+                                              state.rng, group)
             else:
                 out = generator_fwd(state.generator, batch)
                 y_hat, commit = out if has_commit else (out, None)
@@ -292,6 +313,8 @@ def make_gan_step(generator_fwd: Callable, mel_fn: Callable, cfg: GANConfig,
                       + losses.discriminator_loss(sr, sg)[0])
             state.d_opt.zero_grad(set_to_none=True)
             d_loss.backward()
+            if group is not None:
+                all_reduce_grads(d_params, group, average=True)
             _update(state.d_guard, state.d_opt, d_params)
 
             # ---- 3. the generator's losses vs the updated discs -------
@@ -310,6 +333,8 @@ def make_gan_step(generator_fwd: Callable, mel_fn: Callable, cfg: GANConfig,
                     total = total + cfg.lambda_commit * commit
                 state.g_opt.zero_grad(set_to_none=True)
                 total.backward()
+            if group is not None:
+                all_reduce_grads(state.g_parameters(), group, average=True)
             _update(state.g_guard, state.g_opt, state.g_parameters())
         if vq_before is not None:
             # the codebooks updated in the forward, out of the optimizers'
@@ -322,6 +347,8 @@ def make_gan_step(generator_fwd: Callable, mel_fn: Callable, cfg: GANConfig,
                        mel_error=(loss_mel / cfg.mel_weight).detach())
         if has_commit:
             metrics["commit"] = commit.detach()
+        if group is not None:
+            metrics = reduce_metrics(metrics, group)
         if state.g_guard is not None:
             metrics["nonfinite_skips"] = max(state.g_guard.notfinite_count,
                                              state.d_guard.notfinite_count)

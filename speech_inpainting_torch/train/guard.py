@@ -16,14 +16,31 @@ from typing import Callable, Sequence
 import torch
 
 
+def total_norm(tensors: Sequence[torch.Tensor],
+               norm_type: float = 2.0) -> torch.Tensor:
+    """torch.nn.utils.get_total_norm, also over tensors of which some are
+    DTensors (parallel/tp.py's sharded weights): their norms are taken
+    over the whole tensor (a collective over their mesh) and combined with
+    the plain tensors' norm."""
+    plain = [t for t in tensors if not hasattr(t, "full_tensor")]
+    split = [t for t in tensors if hasattr(t, "full_tensor")]
+    if not split:
+        return torch.nn.utils.get_total_norm(plain, norm_type=norm_type)
+    norms = [torch.linalg.vector_norm(t, norm_type).full_tensor()
+             for t in split]
+    if plain:
+        norms.append(torch.nn.utils.get_total_norm(plain,
+                                                   norm_type=norm_type))
+    return torch.linalg.vector_norm(torch.stack(norms), norm_type)
+
+
 def all_finite(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """0-dim bool tensor: no element of `tensors` is nan or inf (their
     largest magnitude is finite, which no sum can overflow)."""
     tensors = [t for t in tensors if t is not None]
     if not tensors:
         return torch.tensor(True)
-    return torch.isfinite(torch.nn.utils.get_total_norm(
-        tensors, norm_type=float("inf")))
+    return torch.isfinite(total_norm(tensors, norm_type=float("inf")))
 
 
 class SkipNonFinite:

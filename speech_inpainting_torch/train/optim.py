@@ -12,6 +12,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..parallel.distributed import local_shard
+
 
 def exponential_decay(init_value: float, transition_steps: int,
                       decay_rate: float) -> Callable[[int], float]:
@@ -43,7 +45,8 @@ class AdamW(torch.optim.Optimizer):
     stepped with a zero gradient, as optax steps every leaf of its tree:
     its moments decay and the weight decay still moves it. A parameter
     that must not move (optax.set_to_zero in the JAX package) stays out of
-    the optimizer. With a `schedule`, each group's lr is
+    the optimizer. A DTensor parameter (parallel/tp.py) steps the shard
+    this rank holds, its moments of that shard's shape. With a `schedule`, each group's lr is
     schedule(t − 1), the count before this update, as optax's
     scale_by_schedule reads its own count (advanced with Adam's)."""
 
@@ -62,12 +65,14 @@ class AdamW(torch.optim.Optimizer):
                 continue
             for p in params:
                 if not self.state[p]:
+                    shard = local_shard(p)
                     self.state[p].update(step=0,
-                                         exp_avg=torch.zeros_like(p),
-                                         exp_avg_sq=torch.zeros_like(p))
+                                         exp_avg=torch.zeros_like(shard),
+                                         exp_avg_sq=torch.zeros_like(shard))
             states = [self.state[p] for p in params]
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                     for p in params]
+            grads = [torch.zeros_like(local_shard(p)) if p.grad is None
+                     else local_shard(p.grad) for p in params]
+            params = [local_shard(p) for p in params]
             mu = [s["exp_avg"] for s in states]
             nu = [s["exp_avg_sq"] for s in states]
             b1, b2 = group["betas"]

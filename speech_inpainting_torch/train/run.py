@@ -3,7 +3,7 @@ interval validation, checkpoints and resume.
 
 Counterpart of speech_inpainting_tpu/train/run.py's `RunConfig`,
 `PreemptionGuard`, `_check_nonfinite_abort`, `run_ea_training`,
-`gan_valid_fn` and `run_gan_training`, in one process on one device:
+`gan_valid_fn` and `run_gan_training`:
   - I_ea: full-state resume from the newest `ea_`, validation every
     `validation_interval` steps with `best_` on the highest `cos_sim_acc`,
     `last_` at each epoch's end;
@@ -14,8 +14,14 @@ Counterpart of speech_inpainting_tpu/train/run.py's `RunConfig`,
   - both: the step cap, the nonfinite abort (which saves first), and
     SIGTERM or SIGINT saving and returning. `--epochs` counts the epochs
     of this run, a resumed one too.
-A mesh (data parallel over several cards) is refused: it waits for ROADMAP
-Queue 1 item 11.
+With `RunConfig.mesh` (parallel/mesh.py: one rank per card) the state is
+restored, then made rank 0's on every rank (`sync_from_coordinator`), and
+the step runs on the mesh (`state.mesh`: it reduces the gradients over the
+data axes); each rank keeps its rows of every global batch
+(`local_batches`), and only the coordinator writes checkpoints, log lines
+and TensorBoard media. A validation sweep runs whole on every rank (its
+batches replicated), so every rank logs the same means. Several processes
+without a mesh raise: each would train a model of its own.
 """
 from __future__ import annotations
 
@@ -27,6 +33,9 @@ from typing import Callable, Optional
 import numpy as np
 
 from ..data.pipeline import device_prefetch
+from ..parallel.distributed import (is_coordinator, local_batches,
+                                    sync_from_coordinator)
+from ..parallel.mesh import world_size
 from ..utils.checkpoints import (Checkpointer, restore_gan_checkpoint,
                                  save_gan_checkpoint)
 from ..utils.logging import TrainLogger
@@ -42,7 +51,8 @@ class RunConfig:
     checkpoint_interval: int = 5000
     validation_interval: int = 1000
     training_steps: Optional[int] = None   # hard step cap
-    mesh: Optional[object] = None          # not ported: must stay None
+    mesh: Optional[object] = None          # DeviceMesh for data
+                                           # parallelism (parallel/mesh.py)
     abort_nonfinite: int = 0               # >0: abort (after checkpointing
                                            # the still-finite state) once the
                                            # step metric 'nonfinite_skips'
@@ -94,10 +104,22 @@ def _check_nonfinite_abort(run: RunConfig, steps: int, metrics,
         "applied — the saved checkpoint is finite. Inspect the data/lr.")
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "training over a mesh is not ported (ROADMAP Queue 1 item 11)")
+def _place(state, run: RunConfig):
+    """The restored state, rank 0's on every rank, running on run.mesh.
+    Several processes without a mesh raise (no gradient reduction: each
+    would silently train a divergent model)."""
+    if run.mesh is None:
+        if world_size() > 1:
+            raise RuntimeError(
+                "multi-process runtime with RunConfig.mesh=None: each "
+                "process would silently train a divergent model (no "
+                "gradient reduction). Build a global mesh "
+                "(parallel.mesh.make_mesh / make_hybrid_mesh) and set "
+                "RunConfig.mesh — the CLIs do this via --mesh.")
+        return state
+    state = sync_from_coordinator(state)
+    state.mesh = run.mesh
+    return state
 
 
 def gan_valid_fn(eval_fn: Callable, val_batches,
@@ -116,7 +138,9 @@ def gan_valid_fn(eval_fn: Callable, val_batches,
     generator_fwd) logs the first validation item's audio (at
     `sample_rate`) and, with `media_mel` (a MelConfig), its mel figure,
     where the logger has a TensorBoard writer (without one the JAX package
-    runs that forward for nothing)."""
+    runs that forward for nothing). On a mesh every rank sweeps every
+    batch (the JAX package replicates them), so the means agree; only the
+    coordinator's logger writes."""
     import torch
 
     from ..ops.mel import mel_spectrogram
@@ -153,20 +177,27 @@ def run_gan_training(step_fn: Callable, state, make_batches: Callable,
     """Drive a `GANTrainState`: step_fn(state, batch), make_batches(epoch)
     → iterable of host batches, valid_fn(state, logger=, steps=) (as
     gan_valid_fn builds it) → metrics. Returns the final state."""
-    _no_mesh(run.mesh)
+    coord = is_coordinator()
     ckpt = Checkpointer(run.checkpoint_dir)
     state, had_g, had_do = restore_gan_checkpoint(ckpt, state)
-    if had_g or had_do:
+    state = _place(state, run)
+    if (had_g or had_do) and coord:
         print(f"resumed from step {state.step}")
     logger = TrainLogger(run.log_dir, stdout_interval=run.stdout_interval,
-                         summary_interval=run.summary_interval)
+                         summary_interval=run.summary_interval,
+                         quiet=not coord)
     device = next(state.generator.parameters()).device
     steps = state.step
-    save = lambda wait: save_gan_checkpoint(  # noqa: E731
-        ckpt, state, steps, wait=wait)
+
+    def save(wait):
+        if coord:
+            save_gan_checkpoint(ckpt, state, steps, wait=wait)
+
     with PreemptionGuard() as pre:
         for epoch in range(run.epochs):
-            for batch in device_prefetch(make_batches(epoch), device=device):
+            for batch in device_prefetch(
+                    local_batches(make_batches(epoch), run.mesh),
+                    device=device):
                 state, metrics = step_fn(state, batch)
                 steps += 1
                 logger.step(steps, metrics)
@@ -174,7 +205,8 @@ def run_gan_training(step_fn: Callable, state, make_batches: Callable,
                                        lambda: save(True))
                 if pre.requested:
                     save(True)
-                    print(f"preempted: saved g_/do_ at step {steps}")
+                    if coord:
+                        print(f"preempted: saved g_/do_ at step {steps}")
                     logger.close()
                     return state
                 if steps % run.checkpoint_interval == 0:
@@ -200,35 +232,46 @@ def run_ea_training(step_fn: Callable, eval_fn: Callable, state,
     """Drive an `EATrainState`: step_fn(state, batch), eval_fn(model,
     batch), make_batches(epoch) / make_valid_batches(epoch) → iterables of
     host batches. Returns the final state."""
-    _no_mesh(run.mesh)
+    coord = is_coordinator()
     ckpt = Checkpointer(run.checkpoint_dir)
     logger = TrainLogger(run.log_dir, stdout_interval=run.stdout_interval,
-                         summary_interval=run.summary_interval)
+                         summary_interval=run.summary_interval,
+                         quiet=not coord)
     full = ckpt.restore("ea_")
     if full is not None:
         state.load_state_dict(full)
-        print(f"resumed from step {state.step}")
+        if coord:
+            print(f"resumed from step {state.step}")
+    state = _place(state, run)
     device = next(state.model.parameters()).device
     model_tree = lambda: {"model": state.model.state_dict()}  # noqa: E731
+
+    def save(prefix, step, tree, wait=False):
+        if coord:
+            ckpt.save(prefix, step, tree, wait=wait)
+
     best_acc = -np.inf
     steps = state.step
     with PreemptionGuard() as pre:
         for epoch in range(run.epochs):
-            for batch in device_prefetch(make_batches(epoch), device=device):
+            for batch in device_prefetch(
+                    local_batches(make_batches(epoch), run.mesh),
+                    device=device):
                 state, metrics = step_fn(state, batch)
                 steps += 1
                 logger.step(steps, metrics)
                 _check_nonfinite_abort(
                     run, steps, metrics,
-                    lambda: ckpt.save("ea_", steps, state.state_dict(),
-                                      wait=True))
+                    lambda: save("ea_", steps, state.state_dict(),
+                                 wait=True))
                 if pre.requested:
-                    ckpt.save("ea_", steps, state.state_dict(), wait=True)
-                    print(f"preempted: saved ea_ at step {steps}")
+                    save("ea_", steps, state.state_dict(), wait=True)
+                    if coord:
+                        print(f"preempted: saved ea_ at step {steps}")
                     logger.close()
                     return state
                 if steps % run.checkpoint_interval == 0:
-                    ckpt.save("ea_", steps, state.state_dict())
+                    save("ea_", steps, state.state_dict())
                 if steps % run.validation_interval == 0:
                     vals = [eval_fn(state.model, vb)
                             for vb in make_valid_batches(epoch)]
@@ -239,14 +282,14 @@ def run_ea_training(step_fn: Callable, eval_fn: Callable, state,
                             logger.scalar(f"validation/{k}", v, steps)
                         if mean.get("cos_sim_acc", -np.inf) > best_acc:
                             best_acc = mean["cos_sim_acc"]
-                            ckpt.save("best_", 0, model_tree())
+                            save("best_", 0, model_tree())
                 if run.training_steps and steps >= run.training_steps:
                     break
             else:
-                ckpt.save("last_", 0, model_tree())
+                save("last_", 0, model_tree())
                 continue
             break
-    ckpt.save("ea_", steps, state.state_dict())
-    ckpt.save("last_", 0, model_tree(), wait=True)
+    save("ea_", steps, state.state_dict())
+    save("last_", 0, model_tree(), wait=True)
     logger.close()
     return state

@@ -20,11 +20,15 @@ import numpy as np
 
 class TrainLogger:
     def __init__(self, log_dir: Optional[str] = None, *,
-                 stdout_interval: int = 5, summary_interval: int = 100):
+                 stdout_interval: int = 5, summary_interval: int = 100,
+                 quiet: bool = False):
+        """quiet=True silences everything (the ranks other than the
+        coordinator in a multi-process run)."""
         self.stdout_interval = stdout_interval
         self.summary_interval = summary_interval
+        self.quiet = quiet
         self._writer = None
-        if log_dir is not None:
+        if log_dir is not None and not quiet:
             try:
                 from tensorboardX import SummaryWriter
                 self._writer = SummaryWriter(log_dir)
@@ -34,7 +38,7 @@ class TrainLogger:
 
     def step(self, step: int, metrics: Dict, *, prefix: str = "training"):
         now = time.perf_counter()
-        if step % self.stdout_interval == 0:
+        if step % self.stdout_interval == 0 and not self.quiet:
             spb = now - self._t_last
             line = ", ".join(f"{k}: {float(v):4.3f}" for k, v in
                              metrics.items())

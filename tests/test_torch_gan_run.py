@@ -31,6 +31,7 @@ from speech_inpainting_torch.utils.checkpoints import (Checkpointer,
 from speech_inpainting_torch.utils.logging import TrainLogger
 from test_torch_gan_step import SEG, configs
 from test_torch_gan_models import _two_threads  # noqa: F401
+from torch_dist import group_of_one  # noqa: F401
 
 
 _, PCFG = configs(skip_nonfinite=2)
@@ -211,8 +212,23 @@ def test_validation_media_and_g_file_serve(tmp_path, monkeypatch):
         assert torch.equal(served(mel), state.generator.fold()(mel))
 
 
-def test_mesh_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
+def test_mesh_is_refused(tmp_path, monkeypatch, group_of_one):
+    """What the JAX runner refuses: several processes without a mesh. A
+    mesh of one process (a gloo group of one) trains as one device does:
+    the same state after two steps."""
+    from speech_inpainting_torch.parallel.mesh import make_mesh
+    from speech_inpainting_torch.train import run as prun
+    monkeypatch.setattr(prun, "world_size", lambda: 2)
+    with pytest.raises(RuntimeError, match="multi-process runtime"):
         run_gan_training(STEP, new_state(), data(1),
-                         RunConfig(checkpoint_dir=str(tmp_path),
-                                   mesh=object()))
+                         RunConfig(checkpoint_dir=str(tmp_path)))
+    monkeypatch.undo()
+    plain = run_gan_training(STEP, new_state(), data(2),
+                             run_cfg(tmp_path / "plain"))
+    meshed = run_gan_training(STEP, new_state(), data(2),
+                              run_cfg(tmp_path / "mesh",
+                                      mesh=make_mesh(device_type="cpu")))
+    assert meshed.step == plain.step == 2 and meshed.mesh is not None
+    for (k, a), b in zip(plain.generator.state_dict().items(),
+                         meshed.generator.state_dict().values()):
+        assert torch.equal(a, b), k

@@ -12,6 +12,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_dist import group_of_one  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "speech_inpainting_torch"
@@ -33,7 +34,10 @@ def test_every_module_imports_with_jax_blocked():
             "speech_inpainting_torch.utils.timing",
             "speech_inpainting_torch.utils.profiling",
             "speech_inpainting_torch.utils.config",
-            "speech_inpainting_torch.data.download"} <= set(_port_modules())
+            "speech_inpainting_torch.data.download",
+            "speech_inpainting_torch.parallel.mesh",
+            "speech_inpainting_torch.parallel.distributed",
+            "speech_inpainting_torch.parallel.tp"} <= set(_port_modules())
     blocked = "".join(f"sys.modules[{b!r}] = None\n" for b in BANNED)
     code = (f"import sys\n{blocked}import importlib, pickle\n"
             f"for m in {_port_modules()!r}:\n"
@@ -68,8 +72,13 @@ def _imported(tree):
 LAZY = {PORT / "metrics" / "asr.py": {"transformers"}}
 
 
+# the multi-rank tests' workers run the port alone, as chip_smoke.py does
+WORKERS = [ROOT / "tests" / "torch_dist_worker.py",
+           ROOT / "tests" / "torch_dist.py"]
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py"] + WORKERS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import(path):
     tree = ast.parse(path.read_text())
@@ -103,7 +112,7 @@ def test_kernels_are_plain_cuda_built_by_nvcc():
     assert "build/" in (ROOT / ".gitignore").read_text().splitlines()
 
 
-def test_entry_points_refuse_the_cpu_unasked():
+def test_entry_points_refuse_the_cpu_unasked(group_of_one):
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device is usable")
     from speech_inpainting_torch import resolve_device
@@ -164,6 +173,9 @@ def test_entry_points_refuse_the_cpu_unasked():
         extract_features_chunked)
     from speech_inpainting_torch.convert.from_jax import (
         trainable_istft_generator)
+    from speech_inpainting_torch.parallel.distributed import make_hybrid_mesh
+    from speech_inpainting_torch.parallel.mesh import make_mesh
+    cpu_mesh = make_mesh(device_type="cpu")
     assert resolve_device("cpu").type == "cpu"
     cg = CodeGeneratorConfig(HiFiGANConfig(), use_f0=False)
     for call in (lambda: resolve_device(),
@@ -236,7 +248,13 @@ def test_entry_points_refuse_the_cpu_unasked():
                      "g", "--kmeans", "k", "--out", "o"]),
                  lambda: trainable_istft_generator(ISTFTGeneratorConfig()),
                  lambda: train_hifigan.main(["--wavs", ".", "--istft",
-                                             "--checkpoint-path", "c"])):
+                                             "--checkpoint-path", "c"]),
+                 lambda: make_mesh(),
+                 lambda: make_hybrid_mesh(),
+                 lambda: InformedInpainter(
+                     InpainterConfig(HubertConfig.base(), HiFiGANConfig()),
+                     {}, {}, np.zeros((3, 80), np.float32),
+                     mesh=cpu_mesh)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

@@ -34,6 +34,7 @@ from speech_inpainting_torch.utils.checkpoints import (Checkpointer,
                                                        checkpoint_step,
                                                        scan_checkpoint)
 from test_torch_train_ea import NOISE, TINY, assert_trees, setup
+from torch_dist import group_of_one  # noqa: F401
 
 
 class Stub:
@@ -150,11 +151,29 @@ def test_abort_nonfinite(tmp_path):
     assert scan_checkpoint(tmp_path, "ea_").endswith("ea_00000003")
 
 
-def test_mesh_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
+def test_mesh_is_refused(tmp_path, monkeypatch, group_of_one):
+    """What the JAX runner refuses: several processes without a mesh (each
+    would train a model of its own, no gradient reduction). A mesh of one
+    process (a gloo group of one) runs the steps on it, as one device
+    does."""
+    from speech_inpainting_torch.parallel.mesh import make_mesh
+    from speech_inpainting_torch.train import run as prun
+    monkeypatch.setattr(prun, "world_size", lambda: 2)
+    with pytest.raises(RuntimeError, match="multi-process runtime"):
         run_ea_training(stub_step, None, Stub(), batches(1), None,
-                        RunConfig(checkpoint_dir=str(tmp_path),
-                                  mesh=object()))
+                        RunConfig(checkpoint_dir=str(tmp_path)))
+    monkeypatch.undo()
+    mesh = make_mesh(device_type="cpu")
+    stub = Stub()
+    bias = float(stub.model.bias.detach())
+    state = run_ea_training(stub_step, lambda m, b: {}, stub, batches(2),
+                            lambda e: iter([]),
+                            RunConfig(epochs=1, checkpoint_dir=str(tmp_path),
+                                      stdout_interval=100, mesh=mesh))
+    assert state.mesh is mesh and state.step == 2
+    assert float(state.model.bias.detach()) == pytest.approx(bias + 2.0)
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "ea_00000002", "last_00000000"]
 
 
 def test_prefetch_passes_loader_errors(rng):

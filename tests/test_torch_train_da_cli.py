@@ -300,13 +300,26 @@ def test_joint_state_checkpoints_its_rng(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [["--mesh"], ["--coordinator", "h:1"],
-                                   ["--num-processes", "2"],
+                                   ["--num-processes", "1"],
                                    ["--process-id", "0"]])
 def test_train_da_cli_refuses_the_distributed_flags(corpus, tmp_path, extra,
                                                     capsys):
-    with pytest.raises(SystemExit):
-        train_da.main(_args(corpus, tmp_path / "ck", *extra))
-    assert "item 11" in capsys.readouterr().err
+    """The distributed flags as the JAX CLI takes them: --mesh trains over
+    the ranks of the group it joins (a gloo group of one here) and
+    --num-processes 1 is a single-process run (each for zero epochs: the
+    g_/do_ of step 0); a coordinator without the rest, or a process id
+    without a coordinator, raises as initialize does."""
+    args = _args(corpus, tmp_path / "ck", *extra, "--epochs", "0")
+    if extra[0] in ("--coordinator", "--process-id"):
+        with pytest.raises(ValueError, match="coordinator_address"):
+            train_da.main(args)
+        return
+    state = train_da.main(args)
+    assert state.step == 0
+    assert (state.mesh is not None) == (extra == ["--mesh"])
+    assert not torch.distributed.is_initialized()
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
+        "do_00000000", "g_00000000"]
 
 
 def _jitted_init(cls):

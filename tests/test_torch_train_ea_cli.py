@@ -156,7 +156,15 @@ def test_predict_ea_reads_the_trained_last(files):
 
 
 def test_train_ea_cli_refuses_the_mesh(files):
+    """The flags as the JAX CLI takes them: --mesh trains over the ranks of
+    the group it joins (a gloo group of one here: the same two steps);
+    --num-processes 2 without a coordinator raises, as initialize does."""
     d, _ = files
-    for flag in (["--mesh"], ["--num-processes", "2"]):
-        with pytest.raises(SystemExit):
-            train_ea.main(_args(d, "ckpt", "--device", "cpu", *flag))
+    state = train_ea.main(_args(d, "ckpt", "--device", "cpu", "--epochs",
+                                "1", "--mesh"))
+    assert state.mesh is not None and state.step == 2
+    assert not torch.distributed.is_initialized()
+    assert _names(d / "ckpt") == ["ea_00000002", "last_00000000"]
+    with pytest.raises(ValueError, match="coordinator_address"):
+        train_ea.main(_args(d, "ckpt2", "--device", "cpu",
+                            "--num-processes", "2"))

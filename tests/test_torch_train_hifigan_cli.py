@@ -8,8 +8,9 @@ read by `load_generator_checkpoint`), a rerun that resumes 2 → 4,
 generator: 2 steps and a validation sweep, resumed 2 → 4, its g_ loaded
 back into `trainable_istft_generator` equal to the trained module), and
 the refusals of `--istft` beside `--modified` or `--warm-start` (with the
-JAX CLI's reasons), `--mesh` and the distributed flags (naming their
-ROADMAP item)."""
+JAX CLI's reasons), and the distributed flags as the JAX CLI takes them
+(`--mesh` over a group of one, `--num-processes 1` single-process, a
+coordinator or process id alone raising)."""
 import json
 import shutil
 
@@ -197,11 +198,29 @@ def test_cli_istft_with_validation_and_resume(files, tmp_path, capsys,
 @pytest.mark.parametrize("flags,item", [
     (["--istft", "--modified", "--kmeans", "k.npy"], "vanilla-recipe"),
     (["--istft", "--warm-start", "g_00000001"], "trains fresh"),
-    (["--mesh"], "item 11"),
-    (["--coordinator", "localhost:1"], "item 11"),
-    (["--num-processes", "2"], "item 11"),
-    (["--process-id", "0"], "item 11")])
+    (["--mesh"], None),
+    (["--coordinator", "localhost:1"], "coordinator_address"),
+    (["--num-processes", "1"], None),
+    (["--process-id", "0"], "coordinator_address")])
 def test_cli_refusals(files, tmp_path, capsys, flags, item):
+    """The refusals, and the distributed flags as the JAX CLI takes them:
+    --mesh trains over the ranks of the group it joins (a gloo group of
+    one here), --num-processes 1 is a single-process run (each for zero
+    epochs: the g_/do_ of step 0), and a coordinator without the rest or a
+    process id without a coordinator raises, as initialize does."""
+    if item is None:
+        state = train_hifigan.main(_args(files, tmp_path / "ck", *flags,
+                                         "--epochs", "0"))
+        assert state.step == 0
+        assert (state.mesh is not None) == ("--mesh" in flags)
+        assert not torch.distributed.is_initialized()
+        assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
+            "do_00000000", "g_00000000"]
+        return
+    if item == "coordinator_address":
+        with pytest.raises(ValueError, match=item):
+            train_hifigan.main(_args(files, tmp_path, *flags))
+        return
     with pytest.raises(SystemExit):
         train_hifigan.main(_args(files, tmp_path, *flags))
     assert item in capsys.readouterr().err
